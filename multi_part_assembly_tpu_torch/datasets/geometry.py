@@ -1,12 +1,19 @@
-"""Breaking-Bad geometric-assembly data: host dataset, loader, and the
-on-device augmentation.
+"""Breaking-Bad geometric-assembly data: host dataset, loader, the slot
+wire's expansion, and the on-device augmentation.
 
-Port of multi_part_assembly_tpu/datasets/geometry.py:51-174 (the host
-dataset) and :563-627 (`augment_geometry_batch`), on the plain host wire:
-each batch is f32 [B, P, N, 3] raw part clouds, collated on the host into
-pinned memory and copied to the card.  The JAX package's packed f16 wire,
-slot wire and step grouping exist for the TPU's remote runtime and are not
-ported.
+Port of multi_part_assembly_tpu/datasets/geometry.py:51-244 (the host
+dataset and its single-shard slot collate), :427-486 (`unpack_parts`,
+`expand_geometry_batch`), :563-627 (`augment_geometry_batch`) and :630-661
+(`enable_device_sampling`).  Two wires:
+
+  * the host wire: each batch is f32 [B, P, N, 3] raw part clouds sampled
+    on the host, collated into pinned memory and copied to the card;
+  * the slot wire (device sampling, datasets/device_sampler.py): the host
+    ships only the piece slot of each packed part row, the part counts and
+    a seed, and the card draws the points from resident tables.
+
+The JAX package's packed f16 wire, sharded wires and step grouping exist
+for the TPU's remote runtime and are not ported.
 """
 
 import math
@@ -23,6 +30,7 @@ from ..utils.transforms import random_quaternions
 from .mesh_io import MeshSampler
 
 __all__ = ['GeometryPartDataset', 'DataLoader', 'augment_geometry_batch',
+           'unpack_parts', 'expand_geometry_batch', 'enable_device_sampling',
            'build_geometry_dataloader']
 
 _MESH_EXTS = ('.obj', '.off', '.ply', '.stl')
@@ -56,6 +64,9 @@ class GeometryPartDataset:
             self.data_list = self.data_list[:overfit]
         self._epoch_seed = 0
         self._file_cache = {}
+        # sampling tables (datasets/device_sampler.py), set by
+        # enable_device_sampling: collate_batch then emits the slot wire
+        self._device_tables = None
 
     def _read_data(self, data_fn):
         with open(os.path.join(self.data_dir, data_fn)) as f:
@@ -125,19 +136,75 @@ class GeometryPartDataset:
                 raise ValueError(f'ERROR: unknown data {key}')
         return item
 
+    def all_mesh_paths(self):
+        """Every piece mesh path in this split, in a stable order (the
+        sampling tables' slots; bypasses part shuffling)."""
+        paths = []
+        for item in self.data_list:
+            folder = os.path.join(self.data_dir, item)
+            paths += [os.path.join(folder, f) for f in _mesh_names(folder)]
+        return paths
 
-def _collate(items, pin):
-    batch = {}
-    for k in items[0]:
-        t = torch.from_numpy(np.stack([np.asarray(it[k]) for it in items]))
-        batch[k] = t.pin_memory() if pin else t
-    return batch
+    def _collate_slots(self, indices):
+        """The slot wire (JAX geometry.py:209-244, single shard): which
+        piece each packed part row is (`part_slots__packed` [K] int32, the
+        batch's valid parts in order), the per-sample part counts [B] and
+        one sampling seed; the card draws the points itself
+        (device_sampler.sample_and_expand).
+
+        Exactly K rows are shipped.  The JAX package pads K up to one of 8
+        buckets (`_kpad`) to bound the jit shape variants; eager PyTorch
+        compiles nothing per shape, so it has no use for them."""
+        slot_of = self._device_tables.slot_of
+        slots, counts = [], []
+        for index in indices:
+            files = self._mesh_files(index)
+            counts.append(len(files))
+            slots += [slot_of[f] for f in files]
+        # deterministic per (epoch, batch): the epoch's order is seeded, so
+        # indices[0] is unique per batch within an epoch
+        seed = np.int32((self._epoch_seed + int(indices[0])) & 0x7fffffff)
+        return {
+            'part_slots__packed': np.asarray(slots, np.int32),
+            'part_counts': np.asarray(counts, np.int32),
+            'sample_seed': seed,
+            '__tables__': self._device_tables,
+            'data_id': np.asarray(indices, np.int64),
+        }
+
+    def collate_batch(self, indices):
+        """One batch of numpy arrays: the slot wire once sampling tables
+        are set (JAX geometry.py:290-291), else the items stacked."""
+        if self._device_tables is not None:
+            return self._collate_slots(indices)
+        return _stack_items([self[i] for i in indices])
+
+
+def _stack_items(items):
+    return {k: np.stack([np.asarray(it[k]) for it in items])
+            for k in items[0]}
+
+
+def _to_tensors(batch, pin):
+    """numpy values -> CPU tensors (pinned when `pin`); other values, such
+    as the slot wire's tables, pass through."""
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, (np.ndarray, np.generic)):
+            v = torch.from_numpy(np.asarray(v))
+            if pin:
+                v = v.pin_memory()
+        out[k] = v
+    return out
 
 
 class DataLoader:
     """Batches of a dataset as dicts of CPU tensors (pinned when a card is
     present), collated by one producer thread that stays _PREFETCH batches
-    ahead of the consumer.  Shuffling is seeded by (seed, epoch)."""
+    ahead of the consumer.  Shuffling is seeded by (seed, epoch).  The
+    dataset collates whole batches itself with `collate_batch(indices)`
+    (JAX datasets/loader.py `batch_collate`), and so chooses the wire: host
+    clouds, or piece slots once device sampling is enabled."""
 
     def __init__(self, dataset, batch_size, shuffle=False, drop_last=False,
                  seed=0):
@@ -183,7 +250,8 @@ class DataLoader:
                 for idx in self._batches():
                     if stop.is_set():
                         return
-                    put(_collate([self.dataset[int(i)] for i in idx], pin))
+                    batch = self.dataset.collate_batch([int(i) for i in idx])
+                    put(_to_tensors(batch, pin))
             except Exception as e:  # re-raised in the consumer
                 put(e)
             put(done)
@@ -202,6 +270,46 @@ class DataLoader:
         finally:
             stop.set()
             worker.join()
+
+
+def unpack_parts(part_pcs_packed, pack_index, part_valids):
+    """[K, N, 3] packed rows + [B, P] row index -> [B, P, N, 3], padded
+    parts zeroed (JAX geometry.py:427-446).  An index gather: the JAX
+    package's one-hot matmul is a device of the TPU's MXU."""
+    pcs = part_pcs_packed[pack_index.long()]
+    return torch.where(part_valids[..., None, None] > 0, pcs,
+                       torch.zeros((), dtype=pcs.dtype, device=pcs.device))
+
+
+def expand_geometry_batch(part_pcs_packed, part_counts, max_parts,
+                          data_keys=('part_ids', 'valid_matrix')):
+    """Packed rows [K, N, 3] + part counts [B] -> the full dense batch, on
+    their device (JAX geometry.py:449-486): part_valids, the row index,
+    part_ids, valid_matrix and the empty labels derive from the counts.
+    Valid parts are a prefix of the part axis."""
+    B = part_counts.shape[0]
+    P = max_parts
+    device = part_counts.device
+    counts = part_counts.to(torch.int64)
+    row = torch.arange(P, device=device)[None, :]            # [1, P]
+    mask = row < counts[:, None]                             # [B, P]
+    valids = mask.float()
+    offsets = torch.cumsum(counts, 0) - counts               # [B]
+    pack_index = torch.where(mask, offsets[:, None] + row, 0)
+    batch = {
+        'part_pcs_raw': unpack_parts(part_pcs_packed, pack_index, valids),
+        'part_valids': valids,
+        'instance_label': torch.zeros((B, P, 0), device=device),
+        'part_label': torch.zeros((B, P, 0), device=device),
+    }
+    for key in data_keys:
+        if key == 'part_ids':
+            batch['part_ids'] = torch.where(mask, row, 0).float()
+        elif key == 'valid_matrix':
+            batch['valid_matrix'] = valids[:, :, None] * valids[:, None, :]
+        else:
+            raise ValueError(f'ERROR: unknown data {key}')
+    return batch
 
 
 def augment_geometry_batch(part_pcs_raw, part_valids, generator=None,
@@ -250,6 +358,26 @@ def augment_geometry_batch(part_pcs_raw, part_valids, generator=None,
     return {'part_pcs': pcs * valid[..., None],
             'part_quat': gt_quat * valid,
             'part_trans': centroid * valid}
+
+
+def enable_device_sampling(loader, cfg, device):
+    """Switch a geometry loader to the slot wire (JAX geometry.py:630-661).
+
+    Builds the sampling tables of the loader's split once, places them on
+    `device`, and has the dataset's collate emit piece slots instead of
+    sampled points.  `cfg.data.device_table_layout` ('dense' or 'chunked';
+    absent: the auto rule) picks the layout.  Returns the tables, or None
+    when the dataset is not geometry or the tables would exceed the default
+    budget: the host wire then stays in effect."""
+    from .device_sampler import build_device_tables
+    ds = loader.dataset
+    if not isinstance(ds, GeometryPartDataset):
+        return None
+    if ds._device_tables is None:
+        ds._device_tables = build_device_tables(
+            ds.all_mesh_paths(), ds.sampler, device=device,
+            layout=cfg.data.get('device_table_layout', None))
+    return ds._device_tables
 
 
 def build_geometry_dataloader(cfg, sampler=None):

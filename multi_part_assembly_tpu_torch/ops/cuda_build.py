@@ -52,6 +52,10 @@ def _bind(lib):
     lib.mpa_chamfer_nn.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.mpa_chamfer_bwd.restype = i
     lib.mpa_chamfer_bwd.argtypes = [p, p, p, p, p, p, i, i, i, p]
+    for name in ('mpa_sample_dense', 'mpa_sample_chunked'):
+        fn = getattr(lib, name)
+        fn.restype = i
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
     return lib
 
 

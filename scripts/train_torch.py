@@ -2,12 +2,17 @@
 
 Counterpart of scripts/train.py for `multi_part_assembly_tpu_torch`:
     python scripts/train_torch.py --cfg_file configs/...py \
-        [--opts key value ...] [--overfit N] [--bf16 | --no-bf16]
+        [--device cuda|cuda:N|cpu] [--opts key value ...] [--overfit N] \
+        [--bf16 | --no-bf16]
 
-Trains on the first CUDA device when there is one, else on the CPU.  The
-port reads the host-sampled point clouds (the JAX trainer's
-`data.device_sampling` wire is not ported yet).  Checkpoints and
-auto-resume are not ported yet either.
+Trains on `--device` (default `cuda`); a CUDA device that is absent is an
+error, and the CPU runs only when `--device cpu` asks for it.  With
+`--opts data.device_sampling True` (the default 'auto' is on for geometry
+data on a CUDA device) the card samples the surface points itself from
+resident mesh tables, laid out by `data.device_table_layout dense|chunked`
+(default: the auto rule); `data.device_sampling False` samples them on the
+host and copies the clouds.  Checkpoints and auto-resume are not ported
+yet.
 """
 
 import argparse
@@ -20,6 +25,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description='Training script (torch)')
     parser.add_argument('--cfg_file', required=True, type=str)
+    parser.add_argument('--device', type=str, default='cuda',
+                        help="torch device to train on: 'cuda', 'cuda:N' "
+                             "or 'cpu' (default cuda; no CPU fallback)")
     parser.add_argument('--category', type=str, default='',
                         help='dataset category override')
     parser.add_argument('--opts', nargs='*', default=[],
@@ -56,9 +64,14 @@ def build_cfg(args):
 def main(argv=None):
     """Train; returns the Trainer (its last validation in .metrics)."""
     from multi_part_assembly_tpu_torch.train.trainer import Trainer
-    cfg = build_cfg(parse_args(argv))
+    args = parse_args(argv)
+    cfg = build_cfg(args)
     print(cfg)
-    trainer = Trainer(cfg, ckp_dir=cfg.exp.ckp_dir)
+    trainer = Trainer(cfg, args.device, ckp_dir=cfg.exp.ckp_dir)
+    for split, tables in trainer.tables.items():
+        if tables is not None:
+            print(f'{split}: device sampling, {tables.layout} tables of '
+                  f'{tables.nbytes} bytes', flush=True)
     trainer.fit()
     trainer.close()
     print('Done training!')

@@ -114,11 +114,9 @@ def _jax_step(raw, valids):
                 new_params=to_np(new_params))
 
 
-@pytest.fixture(scope='module')
-def step(no_dropout_f32):
-    raw, valids = _raw_batch()
-    ref = _jax_step(raw, valids)
-
+def _torch_step(raw, valids, ref):
+    """The port's step on the weights of `_jax_step`'s result `ref`, with
+    its rotations injected."""
     cfg = TCFG.load_cfg_file(FLAGSHIP).merge_from_list(OPTS)
     cfg.exp.bf16 = False
     net = build_model(cfg)
@@ -140,7 +138,14 @@ def step(no_dropout_f32):
     for group in opt.param_groups:
         group['lr'] = schedule(0)
     opt.step()
-    return ref, dict(aug=aug, logs=logs, grads=grads, net=net)
+    return dict(aug=aug, logs=logs, grads=grads, net=net)
+
+
+@pytest.fixture(scope='module')
+def step(no_dropout_f32):
+    raw, valids = _raw_batch()
+    ref = _jax_step(raw, valids)
+    return ref, _torch_step(raw, valids, ref)
 
 
 def test_augmented_batch_matches_jax(step):
@@ -271,7 +276,8 @@ def test_train_script_runs_on_cpu(synth, tmp_path):
     import train_torch
     trainer = train_torch.main([
         '--cfg_file', FLAGSHIP, '--ckp_dir', str(tmp_path / 'run'),
-        '--no-bf16', '--opts', 'data.data_dir', synth, 'exp.batch_size', '2',
+        '--device', 'cpu', '--no-bf16', '--opts', 'data.data_dir', synth,
+        'exp.batch_size', '2',
         'exp.num_epochs', '2', 'exp.val_every', '1', *OPTS[:8],
         'data.num_pc_points', '16'])
     assert trainer.step == 6 and len(trainer.step_seconds) == 6
