@@ -9,22 +9,32 @@ Phases, each printing its own line(s); any failure exits non-zero:
   3. kernels: each chamfer kernel against its plain PyTorch version at the
      flagship shapes (B=32, P=20, N=1000), part counts drawn from the
      everyday mix: distances bit for bit, witnesses exactly, gradients
-     within a stated tolerance; then both sampling kernels (dense, chunked)
-     against their plain versions on the synthetic everyday set's tables
-     and on a ragged set of triangle soups, at an everyday batch's row
-     count and at the dense bound K = B*P: points bit for bit, face draws
-     exactly, and dense equal to chunked; kernel and plain times from CUDA
-     events;
+     within a stated tolerance.  The unfused route's kernel (B8) also in
+     the B*P one-part diagonal form, and against the fused kernel on the
+     same clouds (witnesses renumbered); the reference API's kernel (B7) on
+     one repulsion scan row (640 clouds, 1000 points against 1000) and on
+     32 clouds of 1000 against 2500 points.  Then both sampling kernels
+     (dense, chunked) against their plain versions on the synthetic
+     everyday set's tables and on a ragged set of triangle soups, at an
+     everyday batch's row count and at the dense bound K = B*P: points bit
+     for bit, face draws exactly, and dense equal to chunked.  Kernel and
+     plain times from CUDA events;
   4. slice: one PN-Transformer MoN loss and its gradients on the card
-     against the same step on the CPU (plain chamfer), same weights;
+     against the same step on the CPU (plain chamfer), same weights; then
+     repulsion_cd_loss forward and backward at flagship shapes through B7,
+     its scan route against its dense route, the kernel against the plain
+     version on the card, and the card against the CPU at a small size.
+     The launch counters are reset just before the repulsion runs and read
+     just after: they give B7's launches;
   5. main path: scripts/train_torch.py's main on the flagship config at
-     full width on a synthetic everyday set, four runs of three epochs
+     full width on a synthetic everyday set, five runs of three epochs
      (12 steps of batch 32) and a validation each: the host wire
      (data.device_sampling False), the device-sampling wire with the auto
-     table layout, with the dense layout, and the host wire again.  Each
-     run resets the launch
-     counters and requires its path's kernels to have launched in training
-     and in validation.
+     table layout, with the dense layout, the host wire again, and the
+     dense layout through the unfused chamfer route (fused mode 'off').
+     Each run resets the launch counters and requires its route's kernels
+     to have launched in training and in validation, and the other
+     route's never.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -68,7 +78,10 @@ KERNELS = [
     ('chamfer_bwd[diag]', 'bwd_diag', f'{TPU}:687', CHAMFER_CU),
     ('sample_dense', 'sample_dense', f'{TPU_DS}:212', SAMPLER_CU),
     ('sample_chunked', 'sample_chunked', f'{TPU_DS}:269', SAMPLER_CU),
+    ('nn_parts[off]', 'nn_off', f'{TPU}:284', CHAMFER_CU),
+    ('nn_dir', 'nn_dir', f'{TPU}:110', CHAMFER_CU),
 ]
+FUSED_KEYS = ('nn_parts', 'nn_diag', 'bwd_parts', 'bwd_diag')
 # face counts of the ragged soup set: sub-chunk, exactly one chunk, many
 RAGGED_FACES = [37, 512, 3000, 20000]
 # The backward's atomicAdds sum a witness's terms in a varying order, so
@@ -205,6 +218,130 @@ def _check_pair(counts, seed, diagonal, timed):
     return {'fwd': (fwd_err, *times['fwd']), 'bwd': (bwd_err, *times['bwd'])}
 
 
+def _check_nn_parts(counts, seed, timed):
+    """B8 against its plain version and against B1 on the same clouds, in
+    the whole-shape form and the B*P one-part diagonal form; returns (err,
+    kernel ms, plain ms) of the whole-shape form, both directions."""
+    x, y, valids = _clouds(counts, seed)
+    b = len(counts)
+    npad = (N + 127) // 128 * 128
+    forms = {
+        'whole': (x, y, valids.to(torch.int32).sum(1, dtype=torch.int32)),
+        'diag': (x.view(b * P, 1, N, 3), y.view(b * P, 1, N, 3),
+                 valids.to(torch.int32).reshape(b * P)),
+    }
+    tag = f'counts={sorted(counts, reverse=True)[:3]}.. B={b}'
+    result = None
+    for form, (q, t, n_p) in forms.items():
+        def fwd(nn):
+            return nn(q, t, n_p) + nn(t, q, n_p)
+
+        def fused():
+            return C.nn_cuda(q, t, n_p, False) + C.nn_cuda(t, q, n_p, False)
+
+        d1k, i1k, d2k, i2k = fwd(C.nn_parts_cuda)
+        d1p, i1p, d2p, i2p = fwd(C.nn_parts_plain)
+        d1f, w1f, d2f, w2f = fused()
+        torch.cuda.synchronize()
+        err = max(float((d1k - d1p).abs().max()),
+                  float((d2k - d2p).abs().max()))
+        mismatches = int((i1k != i1p).sum() + (i2k != i2p).sum())
+        # B8's JAX numbering part * npad + local (0 at padded parts) against
+        # B1's part * N + local (-1 at padded parts)
+        valid = (torch.arange(q.shape[1], device='cuda')[None] <
+                 n_p[:, None])[..., None].expand(d1k.shape)
+
+        def renumber(i):
+            i = i.long()
+            return torch.where(valid, i // npad * N + i % npad, -1)
+
+        b1_err = max(float((d1k - d1f).abs().max()),
+                     float((d2k - d2f).abs().max()))
+        b1_mismatches = int((renumber(i1k) != w1f).sum() +
+                            (renumber(i2k) != w2f).sum())
+        pad_nonzero = int((i1k[~valid] != 0).sum() + (i2k[~valid] != 0).sum())
+        print(f'kernels: nn_parts[off] {form} {tag}: max|d kernel - d plain| '
+              f'= {err:.3e} (bitwise required), index mismatches = '
+              f'{mismatches}; against chamfer_nn[parts]: max|d| = '
+              f'{b1_err:.3e}, witness mismatches after renumbering = '
+              f'{b1_mismatches}, nonzero indices at padded parts = '
+              f'{pad_nonzero}', flush=True)
+        if err != 0.0 or mismatches or b1_err != 0.0 or b1_mismatches or \
+                pad_nonzero:
+            raise AssertionError(f'nn_parts[off] {form} disagrees with its '
+                                 'plain version or with chamfer_nn[parts]')
+        if not timed:
+            continue
+        k_ms = _cuda_ms(lambda: fwd(C.nn_parts_cuda), 20)
+        p_ms = _cuda_ms(lambda: fwd(C.nn_parts_plain), 3)
+        f_ms = _cuda_ms(fused, 20)
+        print(f'kernels: nn_parts[off] {form} both directions: kernel '
+              f'{k_ms:.4f} ms, plain {p_ms:.4f} ms; chamfer_nn[parts] on '
+              f'the same clouds {f_ms:.4f} ms', flush=True)
+        if form == 'whole':
+            result = (err, k_ms, p_ms)
+    return result
+
+
+def _time_routes(counts, seed):
+    """Forward and backward of chamfer_parts and chamfer_diag, as the loss
+    calls them once a step, through each chamfer route, in the order
+    fused, unfused, unfused, fused: device time by CUDA events and host
+    time per call."""
+    x, y, valids = _clouds(counts, seed)
+    x.requires_grad_()
+
+    def step():
+        d1, d2 = C.chamfer_parts(x, y, valids)
+        e1, e2 = C.chamfer_diag(x, y, valids)
+        torch.autograd.grad(d1.sum() + d2.sum() + e1.sum() + e2.sum(), x)
+
+    prev, times = C.fused_mode(), {'auto': [], 'off': []}
+    try:
+        for mode in ('auto', 'off', 'off', 'auto'):
+            C.set_fused_mode(mode)
+            times[mode].append((_cuda_ms(step, 20), _call_ms(step, 20)))
+    finally:
+        C.set_fused_mode(prev)
+    for mode, label in (('auto', 'fused'), ('off', 'unfused')):
+        (d1, h1), (d2, h2) = times[mode]
+        print(f'kernels: {label} chamfer route, chamfer_parts + chamfer_diag '
+              f'forward and backward: {d1:.4f} / {d2:.4f} ms on the device, '
+              f'{h1:.4f} / {h2:.4f} ms per call by the host clock',
+              flush=True)
+
+
+def _check_nn_dir(x, y, label, timed):
+    """B7 against its plain version, both directions; returns (err, kernel
+    ms, plain ms) of both directions."""
+    def fwd(nn):
+        return nn(x, y) + nn(y, x)
+
+    d1k, i1k, d2k, i2k = fwd(C.nn_dir_cuda)
+    d1p, i1p, d2p, i2p = fwd(C.nn_dir_plain)
+    torch.cuda.synchronize()
+    err = max(float((d1k - d1p).abs().max()), float((d2k - d2p).abs().max()))
+    mismatches = int((i1k != i1p).sum() + (i2k != i2p).sum())
+    finite = bool(torch.isfinite(d1k).all() and torch.isfinite(d2k).all())
+    print(f'kernels: nn_dir {label} [{x.shape[0]}, {x.shape[1]}] x '
+          f'[{y.shape[0]}, {y.shape[1]}]: max|d kernel - d plain| = '
+          f'{err:.3e} (bitwise required), index mismatches = {mismatches}',
+          flush=True)
+    if err != 0.0 or mismatches or not finite:
+        raise AssertionError(f'nn_dir {label} disagrees with its plain '
+                             'version')
+    if not timed:
+        return None
+    k_ms = _cuda_ms(lambda: fwd(C.nn_dir_cuda), 20)
+    k1_ms = _cuda_ms(lambda: C.nn_dir_cuda(x, y), 20)
+    p_ms = _cuda_ms(lambda: fwd(C.nn_dir_plain), 3)
+    pairs = 2 * x.shape[0] * x.shape[1] * y.shape[1]
+    print(f'kernels: nn_dir {label} both directions: kernel {k_ms:.4f} ms '
+          f'(one direction {k1_ms:.4f} ms; {pairs / (k_ms / 1e3):.3e} '
+          f'pairs/s), plain {p_ms:.4f} ms', flush=True)
+    return (err, k_ms, p_ms)
+
+
 def phase_kernels():
     rng = np.random.default_rng(0)
     mix = rng.choice(PART_POOL, B)
@@ -216,6 +353,19 @@ def phase_kernels():
         results[f'nn_{mode}'] = r['fwd']
         results[f'bwd_{mode}'] = r['bwd']
         _check_pair([20] * 8, 2, diagonal, timed=False)
+    results['nn_off'] = _check_nn_parts(mix.tolist(), 1, timed=True)
+    _check_nn_parts([20] * 8, 2, timed=False)
+    _time_routes(mix.tolist(), 1)
+    # one repulsion scan row: part 0 of every shape against all its parts
+    parts, _, _ = _clouds(mix.tolist(), 6)
+    row = parts[:, 0, None].expand(B, P, N, 3).reshape(B * P, N, 3)
+    results['nn_dir'] = _check_nn_dir(
+        row.contiguous(), parts.reshape(B * P, N, 3), 'repulsion scan row',
+        timed=True)
+    g = torch.Generator(device='cuda').manual_seed(7)
+    _check_nn_dir(torch.randn((B, N, 3), generator=g, device='cuda'),
+                  torch.randn((B, 2500, 3), generator=g, device='cuda'),
+                  'N1 != N2', timed=True)
     return results
 
 
@@ -365,6 +515,86 @@ def phase_slice():
         raise AssertionError('the card disagrees with the CPU on one step')
 
 
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def phase_repulsion():
+    """repulsion_cd_loss forward and backward through B7 at flagship
+    shapes: scan route against dense route, kernel against plain version
+    on the card, and the card against the CPU at B=2, P=6, N=200.  Returns
+    the counters of the kernel runs, reset just before them."""
+    from multi_part_assembly_tpu_torch.utils import loss as L
+    rng = np.random.default_rng(0)
+    counts = rng.choice(PART_POOL, B)
+    counts[0] = 20
+    parts, _, valids = _clouds(counts.tolist(), 8)
+    thre = 0.01
+    routes = {'scan': 0, 'dense': 2**62}
+    default = 'scan' if B * P * P * N * N > 2**27 else 'dense'
+
+    def run(limit, plain, pts=parts, v=valids):
+        p = pts.clone().requires_grad_()
+        cd = L.repulsion_cd_matrix(p.detach(), limit, plain=plain)
+        loss = L.repulsion_cd_loss(p, v, thre, limit, plain=plain)
+        loss.sum().backward()
+        return cd, loss.detach(), p.grad
+
+    C.reset_launches()
+    DS.reset_launches()
+    kern = {name: run(limit, False) for name, limit in routes.items()}
+    torch.cuda.synchronize()
+    counters = _launches()
+    expected = 2 * (2 * P + 2)  # matrix + loss; scan 2 a part, dense 2
+    print(f'slice: repulsion_cd_loss B={B} P={P} N={N}, scan and dense '
+          f'routes (the default here: {default}): kernel launches '
+          f'{counters}', flush=True)
+    if counters['nn_dir'] != expected or any(
+            v for k, v in counters.items() if k != 'nn_dir'):
+        raise AssertionError(f'repulsion: expected {expected} nn_dir '
+                             f'launches and no other, got {counters}')
+    (cd_s, l_s, g_s), (cd_d, l_d, g_d) = kern['scan'], kern['dense']
+    cd_rel, loss_rel = _rel(cd_s, cd_d), _rel(l_s, l_d)
+    finite = all(bool(torch.isfinite(t).all()) for t in (cd_s, l_s, g_s))
+    print(f'slice: repulsion scan vs dense: cd matrices rel {cd_rel:.3e}, '
+          f'losses rel {loss_rel:.3e} (tolerance 1e-6); loss mean '
+          f'{float(l_s.mean()):.6f}, cd mean {float(cd_s.mean()):.6f}',
+          flush=True)
+    if not (finite and cd_rel <= 1e-6 and loss_rel <= 1e-6 and
+            l_s.shape == (B, ) and cd_s.shape == (B, P, P)):
+        raise AssertionError('repulsion: the scan and dense routes disagree')
+    for name, limit in routes.items():
+        _, l_p, g_p = run(limit, True)
+        _, l_k, g_k = kern[name]
+        err = float((g_k - g_p).abs().max())
+        tol = GRAD_RTOL * float(g_p.abs().max()) + GRAD_ATOL
+        print(f'slice: repulsion {name} route kernel vs plain: loss bitwise '
+              f'equal {torch.equal(l_k, l_p)}, max|grad kernel - grad plain| '
+              f'= {err:.3e} (tolerance {tol:.3e})', flush=True)
+        if not torch.equal(l_k, l_p) or not err <= tol:
+            raise AssertionError(f'repulsion {name}: kernel disagrees with '
+                                 'the plain version')
+    with torch.no_grad():
+        k_ms = _cuda_ms(lambda: L.repulsion_cd_loss(parts, valids, thre), 5)
+        p_ms = _cuda_ms(lambda: L.repulsion_cd_loss(parts, valids, thre,
+                                                    plain=True), 1)
+    print(f'slice: repulsion forward, default ({default}) route: kernel '
+          f'{k_ms:.4f} ms, plain {p_ms:.4f} ms', flush=True)
+    small, _, small_v = _clouds([3, 6], 9)
+    small = small[:, :6, :200].contiguous()
+    small_v = small_v[:, :6].contiguous()
+    for name, limit in (('scan', 0), ('dense', 2**27)):
+        _, l_k, _ = run(limit, False, small, small_v)
+        _, l_c, _ = run(limit, True, small.cpu(), small_v.cpu())
+        rel = _rel(l_k.cpu(), l_c)
+        print(f'slice: repulsion {name} route B=2 P=6 N=200, card vs CPU: '
+              f'loss rel {rel:.3e} (tolerance 1e-5)', flush=True)
+        if not rel <= 1e-5:
+            raise AssertionError(f'repulsion {name}: the card disagrees '
+                                 'with the CPU')
+    return counters
+
+
 def _make_everyday_set(root):
     """Synthetic everyday-format set: 128 shapes, part counts from the
     everyday mix (one with 20 parts), detail-8 box meshes."""
@@ -387,18 +617,22 @@ def _launches():
     return {**C.LAUNCHES, **DS.LAUNCHES}
 
 
+DENSE = ['data.device_sampling', 'True', 'data.device_table_layout', 'dense']
 # (label, extra --opts, table layout expected (None: the host wire), the
-# sampling kernel that must launch).  On the 768-face boxes the auto rule
-# picks chunked: dense scans 2 x 768 one-hot columns, chunked 2 x 512.
+# sampling kernel that must launch, chamfer fused mode).  On the 768-face
+# boxes the auto rule picks chunked: dense scans 2 x 768 one-hot columns,
+# chunked 2 x 512.
 RUNS = [
-    ('host wire', ['data.device_sampling', 'False'], None, None),
+    ('host wire', ['data.device_sampling', 'False'], None, None, 'auto'),
     ('device sampling, auto layout', ['data.device_sampling', 'True'],
-     'chunked', 'sample_chunked'),
-    ('device sampling, dense layout', ['data.device_sampling', 'True',
-                                       'data.device_table_layout', 'dense'],
-     'dense', 'sample_dense'),
+     'chunked', 'sample_chunked', 'auto'),
+    ('device sampling, dense layout', DENSE, 'dense', 'sample_dense',
+     'auto'),
     # last as well as first, so that an order effect shows
-    ('host wire, again', ['data.device_sampling', 'False'], None, None),
+    ('host wire, again', ['data.device_sampling', 'False'], None, None,
+     'auto'),
+    ('unfused chamfer route, dense layout', DENSE, 'dense', 'sample_dense',
+     'off'),
 ]
 
 
@@ -407,9 +641,10 @@ def _train_run(index, data_dir, tmp):
     validation, every launch counter reset just before it."""
     import train_torch
     from multi_part_assembly_tpu_torch.train.trainer import Trainer
-    label, opts, layout, sampler_key = RUNS[index]
+    label, opts, layout, sampler_key, mode = RUNS[index]
     launches = {}
     validate = Trainer.validate
+    prev_mode = C.fused_mode()
 
     def counted_validate(self, epoch):
         launches['train'] = _launches()
@@ -420,6 +655,7 @@ def _train_run(index, data_dir, tmp):
 
     run_dir = os.path.join(tmp, f'run{index}')
     Trainer.validate = counted_validate
+    C.set_fused_mode(mode)
     try:
         torch.cuda.reset_peak_memory_stats()
         C.reset_launches()
@@ -434,6 +670,7 @@ def _train_run(index, data_dir, tmp):
         totals = _launches()
     finally:
         Trainer.validate = validate
+        C.set_fused_mode(prev_mode)
     with open(os.path.join(run_dir, 'metrics.jsonl')) as f:
         records = [json.loads(line) for line in f]
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -469,18 +706,32 @@ def _train_run(index, data_dir, tmp):
     if (None if tables is None else tables.layout) != layout or \
             (trainer.tables['val'] is None) != (layout is None):
         raise AssertionError(f'{tag}: expected the {layout or "host"} wire')
-    for key in C.LAUNCHES:
+    # per route: the fused run launches B1-B4 (the diagonal forward in
+    # validation) and never B8; the unfused run B8 in training and in
+    # validation and never B1-B4; no run launches B7
+    train_keys = ('nn_off', ) if mode == 'off' else FUSED_KEYS
+    val_key = 'nn_off' if mode == 'off' else 'nn_diag'
+    never = FUSED_KEYS + ('nn_dir', ) if mode == 'off' else \
+        ('nn_off', 'nn_dir')
+    for key in train_keys:
         if launches['train'][key] <= 0:
             raise AssertionError(f'{tag}: {key} never launched in training')
-    if launches['val']['nn_diag'] <= 0:
-        raise AssertionError(f'{tag}: nn_diag never launched in validation')
+    if launches['val'][val_key] <= 0:
+        raise AssertionError(f'{tag}: {val_key} never launched in '
+                             'validation')
+    for key in never:
+        for split in ('train', 'val'):
+            if launches[split][key]:
+                raise AssertionError(
+                    f'{tag}: {key} launched {launches[split][key]} times in '
+                    f'{split} on the {mode} route')
     for key in DS.LAUNCHES:
         for split in ('train', 'val'):
             if (launches[split][key] > 0) != (key == sampler_key):
                 raise AssertionError(
                     f'{tag}: {key} launched {launches[split][key]} times in '
                     f'{split}')
-    return totals, (ms, wait_ms)
+    return totals, (ms, wait_ms, losses[0])
 
 
 def phase_main(data_dir, tmp):
@@ -492,7 +743,12 @@ def phase_main(data_dir, tmp):
             totals[k] = totals.get(k, 0) + v
     print('main: ' + '; '.join(
         f'{label} {ms:.2f} ms/step, data wait {wait:.3f} ms'
-        for (label, *_), (ms, wait) in zip(RUNS, times)), flush=True)
+        for (label, *_), (ms, wait, _) in zip(RUNS, times)), flush=True)
+    fused, unfused = times[2][2], times[4][2]
+    print(f'main: first-step train loss, dense layout: fused route '
+          f'{fused:.7f}, unfused route {unfused:.7f} (rel '
+          f'{abs(unfused - fused) / abs(fused):.2e}; printed, not a gate)',
+          flush=True)
     return totals
 
 
@@ -508,7 +764,10 @@ def main():
         results = phase_kernels()
         results.update(phase_sampler(data_dir, tmp))
         phase_slice()
+        repulsion_launches = phase_repulsion()
         launches = phase_main(data_dir, tmp)
+    # B7 runs on no training path: its count is the repulsion runs'
+    launches['nn_dir'] = repulsion_launches['nn_dir']
     summary = {'kernels': [
         {'name': name, 'route': 'cuda', 'source': source, 'replaces': rep,
          'launches': launches[key], 'max_abs_err': results[key][0],

@@ -1,46 +1,73 @@
-"""Part-structured chamfer distance, forward and backward, on CUDA kernels.
+"""Chamfer distance, forward and backward, on CUDA kernels.
 
-Port of the fused chamfer of the JAX package
-(multi_part_assembly_tpu/ops/chamfer.py).  Public contracts keep the JAX
-layout: clouds are [B, P, N, 3], valid parts are a prefix of the part axis
-given by a [B, P] 1/0 mask, padded parts give distance 0.
+Port of the chamfer of the JAX package (multi_part_assembly_tpu/ops/
+chamfer.py).  Public contracts keep the JAX layout: part clouds are
+[B, P, N, 3], valid parts are a prefix of the part axis given by a [B, P]
+1/0 mask, padded parts give distance 0.
 
   - `chamfer_parts` (JAX `chamfer_parts`, chamfer.py:928-945): whole-shape
     chamfer over all valid parts -> dist1, dist2 [B, P*N].
   - `chamfer_diag` (JAX `chamfer_diag`, chamfer.py:1091-1103): part i of
     one cloud against part i of the other only -> dist1, dist2 [B, P, N].
+  - `chamfer_pairs` (JAX :1106-1124): [M, N, 3] pairs as one-part shapes.
+  - `chamfer_distance`, `nn_distance` (JAX :1127-1168): the reference
+    repo's chamfer of [B, N1, 3] against [B, N2, 3].
 
-Each direction is one launch of the nearest-neighbour kernel
-(csrc/chamfer.cu `mpa_chamfer_nn`), which records the first-hit witness of
-every point as a flat index into the other cloud's [P*N] points (-1 at
-padded parts).  The backward needs no distance recompute: one launch of the
-witness-scatter kernel (`mpa_chamfer_bwd`) per direction.
+Two routes serve the part-structured functions, picked by
+`set_fused_mode` or `MPA_CHAMFER_FUSED` (JAX :948-983):
+  - 'auto' and 'force' (the default): one launch of the nearest-neighbour
+    kernel (csrc/chamfer.cu `mpa_chamfer_nn`, B1/B3) per direction, which
+    records the first-hit witness of every point as a flat index into the
+    other cloud's [P*N] points (-1 at padded parts); the backward is one
+    launch of the witness-scatter kernel (`mpa_chamfer_bwd`, B2/B4) per
+    direction.
+  - 'off', the JAX unfused route: one launch of `mpa_nn_parts` (B8) per
+    direction, witnesses in the JAX numbering part * Npad + local (0 at
+    padded parts), and a plain PyTorch backward (gather + index_add_, XLA's
+    scatter in JAX).
+`chamfer_distance` and `nn_distance` launch `mpa_nn_dir` (B7) once per
+direction; their backward is plain PyTorch, as XLA's is in JAX.
 
 Beside the kernels sit their plain PyTorch versions (`nn_plain`,
-`scatter_grad_plain`), computing the same distance expression in the same
-order.  A CPU tensor takes the plain version, since no kernel exists for
-the CPU; a CUDA tensor launches the kernel or raises.  `LAUNCHES` counts the
-kernel launches, one key per (kernel, mode).
+`scatter_grad_plain`, `nn_parts_plain`, `nn_dir_plain`), computing the same
+distance expression in the same order.  A CPU tensor takes the plain
+version of its route, since no kernel exists for the CPU; a CUDA tensor
+launches the kernel or raises.  `LAUNCHES` counts the kernel launches, one
+key per (kernel, mode).
 """
 
 import functools
+import os
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from .cuda_build import load_library
 
-__all__ = ['chamfer_parts', 'chamfer_diag', 'chamfer_parts_ref',
-           'chamfer_diag_ref', 'chamfer_witnesses', 'nn_cuda', 'nn_plain',
-           'scatter_grad_cuda', 'scatter_grad_plain', 'LAUNCHES',
+__all__ = ['chamfer_parts', 'chamfer_diag', 'chamfer_pairs',
+           'chamfer_parts_ref', 'chamfer_diag_ref', 'chamfer_witnesses',
+           'chamfer_distance', 'nn_distance', 'chamfer_distance_ref',
+           'set_fused_mode', 'fused_mode', 'nn_cuda', 'nn_plain',
+           'scatter_grad_cuda', 'scatter_grad_plain', 'nn_parts_cuda',
+           'nn_parts_plain', 'nn_dir_cuda', 'nn_dir_plain', 'LAUNCHES',
            'reset_launches']
 
-LAUNCHES = {'nn_parts': 0, 'nn_diag': 0, 'bwd_parts': 0, 'bwd_diag': 0}
+LAUNCHES = {'nn_parts': 0, 'nn_diag': 0, 'bwd_parts': 0, 'bwd_diag': 0,
+            'nn_off': 0, 'nn_dir': 0}
 
 # query rows per distance block of the plain whole-shape version: bounds
 # its [rows, P*N] f32 temporaries (one dense [P*N]^2 tile is 1.6 GB at
 # P=20, N=1000)
 _PLAIN_ROWS = 2048
+# pair distances per block of `nn_dir_plain`: bounds its [nb, rows, N2] f32
+# temporaries (one repulsion scan row, 640 clouds of 1000 x 1000, would be
+# 2.56 GB a temporary)
+_PLAIN_PAIRS = 2**25
+# the JAX kernels pad each part's points to a multiple of the TPU's 128
+# lanes; the unfused route keeps that numbering of its witnesses
+_LANES = 128
+_MODES = ('auto', 'force', 'off')
+_FUSED_MODE = 'auto'
 
 
 def reset_launches():
@@ -51,6 +78,30 @@ def reset_launches():
 def _part_counts(valids):
     """[B, P] 1/0 prefix mask -> [B] int32 valid-part counts."""
     return valids.to(torch.int32).sum(1, dtype=torch.int32)
+
+
+def _round_up(x, m):
+    return (x + m - 1) // m * m
+
+
+def set_fused_mode(mode):
+    """Route of `chamfer_parts`/`chamfer_diag` (JAX chamfer.py:961-965):
+    'auto' and 'force' take the fused kernels B1-B4, 'off' the unfused
+    route (B8).  JAX's 'force' means Pallas in interpret mode off the TPU,
+    which has no counterpart here.  On a CPU tensor every mode takes the
+    plain version of its route."""
+    global _FUSED_MODE
+    if mode not in _MODES:
+        raise ValueError(f'fused mode must be one of {_MODES}, got {mode!r}')
+    _FUSED_MODE = mode
+
+
+def fused_mode():
+    """The current route: 'auto', 'force' or 'off'."""
+    return _FUSED_MODE
+
+
+set_fused_mode(os.environ.get('MPA_CHAMFER_FUSED', 'auto'))
 
 
 # ---------------------------------------------------------------------------
@@ -134,6 +185,71 @@ def scatter_grad_cuda(query, target, witness, grad, grad_query, grad_target,
     LAUNCHES['bwd_diag' if diagonal else 'bwd_parts'] += 1
 
 
+def nn_parts_cuda(x, y, n_parts):
+    """Kernel B8: nearest neighbour of every valid point of x among the
+    valid parts of y, one direction of the unfused route.
+
+    Replaces `_nn_parts_pallas` (chamfer.py:330-374, body
+    `_nn_parts_kernel` :284).
+
+    Args:
+        x, y: [B, P, N, 3] f32 CUDA, contiguous
+        n_parts: [B] int32 valid-prefix counts
+
+    Returns:
+        dist [B, P, N] f32 (clamped at 0; 0 at padded parts), idx [B, P, N]
+        int32 in the JAX numbering part * Npad + local, Npad =
+        round_up(N, 128) (0 at padded parts)
+    """
+    B, P, N, _ = x.shape
+    _require(x, 'x', torch.float32, (B, P, N, 3))
+    _require(y, 'y', torch.float32, (B, P, N, 3))
+    _require(n_parts, 'n_parts', torch.int32, (B, ))
+    dist = torch.empty((B, P, N), dtype=torch.float32, device=x.device)
+    idx = torch.empty((B, P, N), dtype=torch.int32, device=x.device)
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        rc = lib.mpa_nn_parts(
+            x.data_ptr(), y.data_ptr(), n_parts.data_ptr(), dist.data_ptr(),
+            idx.data_ptr(), B, P, N, _round_up(N, _LANES),
+            torch.cuda.current_stream().cuda_stream)
+    _check_rc(rc, 'mpa_nn_parts')
+    LAUNCHES['nn_off'] += 1
+    return dist, idx
+
+
+def nn_dir_cuda(x, y):
+    """Kernel B7: nearest neighbour of each point of x among the points of
+    y in the same cloud.
+
+    Replaces `_nn_direction_pallas` (chamfer.py:149-187, body `_nn_kernel`
+    :110).  It launches for any size: JAX's N1 * N2 >= 128 * 128 threshold
+    (:195) is a TPU cost choice.
+
+    Args:
+        x: [B, N1, 3], y: [B, N2, 3] f32 CUDA, contiguous; N2 >= 1
+
+    Returns:
+        dist [B, N1] f32 (clamped at 0), idx [B, N1] int32 into y's points
+    """
+    B, N1, _ = x.shape
+    N2 = y.shape[1]
+    _require(x, 'x', torch.float32, (B, N1, 3))
+    _require(y, 'y', torch.float32, (B, N2, 3))
+    if N2 == 0:
+        raise ValueError('y: no target points')
+    dist = torch.empty((B, N1), dtype=torch.float32, device=x.device)
+    idx = torch.empty((B, N1), dtype=torch.int32, device=x.device)
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        rc = lib.mpa_nn_dir(x.data_ptr(), y.data_ptr(), dist.data_ptr(),
+                            idx.data_ptr(), B, N1, N2,
+                            torch.cuda.current_stream().cuda_stream)
+    _check_rc(rc, 'mpa_nn_dir')
+    LAUNCHES['nn_dir'] += 1
+    return dist, idx
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch versions (the CPU path, and the kernels' yardstick)
 # ---------------------------------------------------------------------------
@@ -193,6 +309,36 @@ def scatter_grad_plain(query, target, witness, grad, grad_query,
                                               -diff.reshape(-1, 3))
 
 
+def nn_parts_plain(x, y, n_parts):
+    """Plain version of `nn_parts_cuda`, same contract (JAX `_nn_parts_ref`,
+    chamfer.py:377-392): the whole-shape `nn_plain` renumbered."""
+    N = x.shape[2]
+    dist, w = nn_plain(x, y, n_parts, diagonal=False)
+    wl = w.long()
+    idx = torch.where(w >= 0, (wl // N) * _round_up(N, _LANES) + wl % N, 0)
+    return dist.clamp_min(0.0), idx.to(torch.int32)
+
+
+def nn_dir_plain(x, y):
+    """Plain version of `nn_dir_cuda`, same contract (JAX `_nn_direction`,
+    chamfer.py:190-199), in blocks of clouds and query rows of at most
+    `_PLAIN_PAIRS` pair distances."""
+    B, N1, _ = x.shape
+    N2 = y.shape[1]
+    if N2 == 0:
+        raise ValueError('y: no target points')
+    dist = x.new_empty((B, N1))
+    idx = torch.empty((B, N1), dtype=torch.int32, device=x.device)
+    rows = max(1, min(N1, _PLAIN_PAIRS // N2))
+    nb = max(1, _PLAIN_PAIRS // (rows * N2))
+    for b in range(0, B, nb):
+        for r in range(0, N1, rows):
+            m, a = _sqdist(x[b:b + nb, r:r + rows], y[b:b + nb]).min(dim=-1)
+            dist[b:b + nb, r:r + rows] = m.clamp_min(0.0)
+            idx[b:b + nb, r:r + rows] = a.to(torch.int32)
+    return dist, idx
+
+
 # ---------------------------------------------------------------------------
 # autograd + public API
 # ---------------------------------------------------------------------------
@@ -229,19 +375,103 @@ class _Chamfer(torch.autograd.Function):
         return dx, dy, None, None, None
 
 
-def chamfer_witnesses(pts1, pts2, valids, *, diagonal, plain=False):
-    """(dist1, dist2, witness1, witness2), each [B, P, N]; distances are
-    differentiable.  `plain=True` forces the plain version on any device
-    (the kernels' comparison); otherwise a CUDA tensor launches the
-    kernels and a CPU tensor takes the plain version."""
+def _plain_for(t, plain=False):
+    """Whether tensor `t` takes the plain versions: always on the CPU, when
+    asked on CUDA; any other device raises."""
+    if t.device.type == 'cpu':
+        return True
+    if t.device.type != 'cuda':
+        raise ValueError(f'no chamfer kernel for device {t.device}')
+    return plain
+
+
+def _parts_args(pts1, pts2, valids, plain=False):
+    """(x, y, n_parts, plain) as both routes' autograd Functions take them."""
     x = pts1.float().contiguous()
     y = pts2.float().contiguous()
-    if x.device.type == 'cpu':
-        plain = True
-    elif x.device.type != 'cuda':
-        raise ValueError(f'no chamfer kernel for device {x.device}')
-    n_parts = _part_counts(valids).contiguous()
+    return x, y, _part_counts(valids).contiguous(), _plain_for(x, plain)
+
+
+def chamfer_witnesses(pts1, pts2, valids, *, diagonal, plain=False):
+    """Fused route: (dist1, dist2, witness1, witness2), each [B, P, N];
+    distances are differentiable.  `plain=True` forces the plain version on
+    any device (the kernels' comparison); otherwise a CUDA tensor launches
+    the kernels and a CPU tensor takes the plain version."""
+    x, y, n_parts, plain = _parts_args(pts1, pts2, valids, plain)
     return _Chamfer.apply(x, y, n_parts, diagonal, plain)
+
+
+def _parts_bwd_one(g, x, y, idx, npad):
+    """Gradient of one direction d_i = |x_i - y_idx_i|^2 with idx in the JAX
+    numbering (JAX `_parts_bwd_one`, chamfer.py:914-925): gather, then
+    index_add_ into y viewed as [B, P*npad]."""
+    B, P, N, _ = x.shape
+    yf = torch.nn.functional.pad(y, (0, 0, 0, npad - N)).reshape(
+        B, P * npad, 3)
+    idxf = idx.reshape(B, P * N).long().clamp(0, P * npad - 1)
+    w = torch.gather(yf, 1, idxf[..., None].expand(B, P * N, 3))
+    diff = 2.0 * g.reshape(B, P * N, 1) * (x.reshape(B, P * N, 3) - w)
+    flat = idxf + torch.arange(B, device=idxf.device)[:, None] * (P * npad)
+    dyf = torch.zeros_like(yf).view(B * P * npad, 3).index_add_(
+        0, flat.reshape(-1), -diff.reshape(-1, 3))
+    return diff.view(B, P, N, 3), dyf.view(B, P, npad, 3)[:, :, :N]
+
+
+class _ChamferUnfused(torch.autograd.Function):
+    """Both directions of the unfused route (JAX chamfer.py:1031-1044 and
+    :1063-1081): one B8 launch per direction; the diagonal form runs B*P
+    one-part shapes with 0/1 flags.  The backward is plain PyTorch, as it
+    is XLA in the JAX package."""
+
+    @staticmethod
+    def forward(ctx, x, y, n_parts, diagonal, plain):
+        B, P, N, _ = x.shape
+        nn = nn_parts_plain if plain else nn_parts_cuda
+        if diagonal:
+            counts = (torch.arange(P, device=x.device)[None] <
+                      n_parts[:, None]).to(torch.int32).reshape(B * P)
+            x1, x2 = x.view(B * P, 1, N, 3), y.view(B * P, 1, N, 3)
+        else:
+            counts, x1, x2 = n_parts, x, y
+        d1, i1 = nn(x1, x2, counts)
+        d2, i2 = nn(x2, x1, counts)
+        ctx.save_for_backward(x, y, i1, i2, n_parts)
+        ctx.diagonal = diagonal
+        return d1.view(B, P, N), d2.view(B, P, N)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g1, g2):
+        x, y, i1, i2, n_parts = ctx.saved_tensors
+        B, P, N, _ = x.shape
+        npad = _round_up(N, _LANES)
+        # zero the cotangents at padded parts: their distances are 0 and
+        # their index 0 points at a real target
+        valid = (torch.arange(P, device=x.device)[None] <
+                 n_parts[:, None])[..., None]
+        g1 = torch.zeros_like(x[..., 0]) if g1 is None else \
+            torch.where(valid, g1, 0.0)
+        g2 = torch.zeros_like(x[..., 0]) if g2 is None else \
+            torch.where(valid, g2, 0.0)
+        if ctx.diagonal:
+            sh = (B * P, 1, N)
+            x1, x2 = x.view(B * P, 1, N, 3), y.view(B * P, 1, N, 3)
+            dx_a, dy_a = _parts_bwd_one(g1.reshape(sh), x1, x2, i1, npad)
+            dy_b, dx_b = _parts_bwd_one(g2.reshape(sh), x2, x1, i2, npad)
+            return (dx_a + dx_b).reshape(x.shape), \
+                (dy_a + dy_b).reshape(y.shape), None, None, None
+        dx_a, dy_a = _parts_bwd_one(g1, x, y, i1, npad)
+        dy_b, dx_b = _parts_bwd_one(g2, y, x, i2, npad)
+        return dx_a + dx_b, dy_a + dy_b, None, None, None
+
+
+def _parts_route(pts1, pts2, valids, diagonal):
+    """dist1, dist2 [B, P, N] through the route `fused_mode()` picks."""
+    x, y, n_parts, plain = _parts_args(pts1, pts2, valids)
+    if _FUSED_MODE == 'off':
+        return _ChamferUnfused.apply(x, y, n_parts, diagonal, plain)
+    d1, d2, _, _ = _Chamfer.apply(x, y, n_parts, diagonal, plain)
+    return d1, d2
 
 
 def chamfer_parts(pts1, pts2, valids):
@@ -255,7 +485,7 @@ def chamfer_parts(pts1, pts2, valids):
         dist1, dist2: [B, P*N] squared distances (0 at padded parts)
     """
     B, P, N, _ = pts1.shape
-    d1, d2, _, _ = chamfer_witnesses(pts1, pts2, valids, diagonal=False)
+    d1, d2 = _parts_route(pts1, pts2, valids, diagonal=False)
     return d1.reshape(B, P * N), d2.reshape(B, P * N)
 
 
@@ -265,12 +495,26 @@ def chamfer_diag(pts1, pts2, valids):
     Returns:
         dist1, dist2: [B, P, N] (0 at padded parts)
     """
-    d1, d2, _, _ = chamfer_witnesses(pts1, pts2, valids, diagonal=True)
-    return d1, d2
+    return _parts_route(pts1, pts2, valids, diagonal=True)
+
+
+def chamfer_pairs(pts1, pts2, pair_valids):
+    """Per-pair chamfer, each pair a one-part shape for `chamfer_parts`, so
+    invalid pairs give 0 (JAX ops/chamfer.py:1106-1124).
+
+    Args:
+        pts1, pts2: [M, N, 3];  pair_valids: [M] 1/0
+
+    Returns:
+        dist1, dist2: [M, N]
+    """
+    M = pts1.shape[0]
+    return chamfer_parts(pts1[:, None], pts2[:, None],
+                         pair_valids.reshape(M, 1))
 
 
 def chamfer_parts_ref(pts1, pts2, valids):
-    """Plain version of `chamfer_parts` with witnesses:
+    """Plain version of the fused `chamfer_parts` with witnesses:
     (dist1, witness1, dist2, witness2), each [B, P*N]."""
     B, P, N, _ = pts1.shape
     d1, d2, w1, w2 = chamfer_witnesses(pts1, pts2, valids, diagonal=False,
@@ -279,8 +523,101 @@ def chamfer_parts_ref(pts1, pts2, valids):
 
 
 def chamfer_diag_ref(pts1, pts2, valids):
-    """Plain version of `chamfer_diag` with witnesses:
+    """Plain version of the fused `chamfer_diag` with witnesses:
     (dist1, witness1, dist2, witness2), each [B, P, N]."""
     d1, d2, w1, w2 = chamfer_witnesses(pts1, pts2, valids, diagonal=True,
                                        plain=True)
     return d1, w1, d2, w2
+
+
+# ---------------------------------------------------------------------------
+# the reference repo's chamfer API on [B, N1, 3] x [B, N2, 3] (B7)
+# ---------------------------------------------------------------------------
+
+
+class _ChamferDir(torch.autograd.Function):
+    """Both directions of one B7 launch each; saves the indices for the
+    backward, a port of JAX `_chamfer_bwd` (chamfer.py:220-238) in plain
+    PyTorch: gather the witnesses, index_add_ their negated terms."""
+
+    @staticmethod
+    def forward(ctx, x, y, plain):
+        nn = nn_dir_plain if plain else nn_dir_cuda
+        d1, i1 = nn(x, y)
+        d2, i2 = nn(y, x)
+        ctx.save_for_backward(x, y, i1, i2)
+        ctx.mark_non_differentiable(i1, i2)
+        return d1, i1, d2, i2
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g1, _gi1, g2, _gi2):
+        x, y, i1, i2 = ctx.saved_tensors
+        g1 = torch.zeros_like(x[..., 0]) if g1 is None else g1
+        g2 = torch.zeros_like(y[..., 0]) if g2 is None else g2
+        i1, i2 = i1.long(), i2.long()
+        y_w = torch.gather(y, 1, i1[..., None].expand_as(x))
+        diff1 = 2.0 * g1[..., None] * (x - y_w)
+        x_w = torch.gather(x, 1, i2[..., None].expand_as(y))
+        diff2 = 2.0 * g2[..., None] * (y - x_w)
+        B, N1, _ = x.shape
+        N2 = y.shape[1]
+        arange = torch.arange(B, device=x.device)[:, None]
+        dy = diff2 + torch.zeros_like(y).view(B * N2, 3).index_add_(
+            0, (i1 + arange * N2).reshape(-1), -diff1.reshape(-1, 3)
+        ).view_as(y)
+        dx = diff1 + torch.zeros_like(x).view(B * N1, 3).index_add_(
+            0, (i2 + arange * N1).reshape(-1), -diff2.reshape(-1, 3)
+        ).view_as(x)
+        return dx, dy, None
+
+
+def _nn_both(xyz1, xyz2, transpose, plain):
+    if transpose:
+        xyz1, xyz2 = xyz1.transpose(1, 2), xyz2.transpose(1, 2)
+    x = xyz1.float().contiguous()
+    y = xyz2.float().contiguous()
+    return _ChamferDir.apply(x, y, _plain_for(x, plain))
+
+
+def chamfer_distance(xyz1, xyz2, transpose=False, sqrt=False, eps=1e-12, *,
+                     plain=False):
+    """Chamfer distance between two batched point clouds
+    (JAX ops/chamfer.py:1127-1153, the reference repo's API).
+
+    Args:
+        xyz1: [B, N1, 3] (or [B, 3, N1] with transpose=True; [N1, 3] gets a
+            batch axis);  xyz2: [B, N2, 3] likewise
+        sqrt: return sqrt(max(d, eps)) of the squared distances
+        plain: force the plain version on a CUDA tensor (the kernel's
+            comparison)
+
+    Returns:
+        (dist1 [B, N1], dist2 [B, N2])
+    """
+    if xyz1.dim() == 2:
+        xyz1, xyz2 = xyz1[None], xyz2[None]
+    dist1, _, dist2, _ = _nn_both(xyz1, xyz2, transpose, plain)
+    if sqrt:
+        dist1 = torch.sqrt(dist1.clamp_min(eps))
+        dist2 = torch.sqrt(dist2.clamp_min(eps))
+    return dist1, dist2
+
+
+def nn_distance(xyz1, xyz2, transpose=False, sqrt=False, *, plain=False):
+    """Chamfer plus nearest-neighbour indices (JAX ops/chamfer.py:1156-1168):
+    (dist1 [B, N1], idx1 [B, N1], dist2 [B, N2], idx2 [B, N2])."""
+    dist1, idx1, dist2, idx2 = _nn_both(xyz1, xyz2, transpose, plain)
+    if sqrt:
+        dist1 = torch.sqrt(dist1.clamp_min(1e-12))
+        dist2 = torch.sqrt(dist2.clamp_min(1e-12))
+    return dist1, idx1, dist2, idx2
+
+
+def chamfer_distance_ref(xyz1, xyz2):
+    """Naive full-matrix chamfer (JAX ops/chamfer.py:95-102), the port's
+    distance expression: (dist1, idx1, dist2, idx2)."""
+    d = _sqdist(xyz1.float(), xyz2.float())
+    dist1, idx1 = d.min(dim=2)
+    dist2, idx2 = d.min(dim=1)
+    return dist1, idx1.to(torch.int32), dist2, idx2.to(torch.int32)

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) at first use.
 
-The sources compile with nvcc into one shared library with a plain C
-interface, bound with ctypes: seconds to build, where a source that
-includes PyTorch's headers takes minutes.  The library lands in
+Each source compiles with its own nvcc, all started together, and the
+objects link into one shared library with a plain C interface, bound with
+ctypes: seconds to build, where a source that includes PyTorch's headers
+takes minutes.  The library lands in
 `csrc/build/` (listed in .gitignore; `MPA_TORCH_KERNEL_DIR` overrides it),
 named by a hash of the sources and flags, so an edited source rebuilds and
 an unchanged one is reused.  Nothing here runs at import time: the CPU
@@ -24,7 +25,7 @@ __all__ = ['load_library', 'build_seconds', 'NVCC_FLAGS']
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), 'csrc')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-fmad=false', '-shared', '-Xcompiler', '-fPIC')
+              '-O3', '-fmad=false', '-Xcompiler', '-fPIC')
 
 _lock = threading.Lock()
 _lib = None
@@ -52,11 +53,29 @@ def _bind(lib):
     lib.mpa_chamfer_nn.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.mpa_chamfer_bwd.restype = i
     lib.mpa_chamfer_bwd.argtypes = [p, p, p, p, p, p, i, i, i, p]
+    lib.mpa_nn_parts.restype = i
+    lib.mpa_nn_parts.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.mpa_nn_dir.restype = i
+    lib.mpa_nn_dir.argtypes = [p, p, p, p, i, i, i, p]
     for name in ('mpa_sample_dense', 'mpa_sample_chunked'):
         fn = getattr(lib, name)
         fn.restype = i
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
     return lib
+
+
+def _run(commands):
+    """Runs the commands in parallel; raises with every failure's stderr."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in commands]
+    failed = []
+    for c, proc in zip(commands, procs):
+        _, err = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            failed.append(f'{" ".join(c)}\n{err}')
+    if failed:
+        raise RuntimeError('nvcc failed:\n' + '\n'.join(failed))
 
 
 def load_library():
@@ -76,20 +95,16 @@ def load_library():
                            f'libmpa_kernels_{digest.hexdigest()[:12]}.so')
         t0 = time.perf_counter()
         if not os.path.exists(out):
-            # build to a private name, then rename: concurrent first users
-            # never load a half-written library
-            fd, tmp = tempfile.mkstemp(suffix='.so', dir=os.path.dirname(out))
-            os.close(fd)
-            try:
-                proc = subprocess.run(
-                    [_nvcc(), *NVCC_FLAGS, '-o', tmp, *sources],
-                    capture_output=True, text=True, timeout=600)
-                if proc.returncode != 0:
-                    raise RuntimeError(f'nvcc failed:\n{proc.stderr}')
-                os.replace(tmp, out)
-            finally:
-                if os.path.exists(tmp):
-                    os.remove(tmp)
+            # build in a private directory, then rename: concurrent first
+            # users never load a half-written library
+            with tempfile.TemporaryDirectory(dir=os.path.dirname(out)) as tmp:
+                objs = [os.path.join(tmp, os.path.basename(src) + '.o')
+                        for src in sources]
+                _run([[_nvcc(), *NVCC_FLAGS, '-c', src, '-o', obj]
+                      for src, obj in zip(sources, objs)])
+                lib = os.path.join(tmp, 'lib.so')
+                _run([[_nvcc(), '-shared', *NVCC_FLAGS, '-o', lib, *objs]])
+                os.replace(lib, out)
         _build_seconds = time.perf_counter() - t0
         _lib = _bind(ctypes.CDLL(out))
         return _lib

@@ -1,7 +1,8 @@
 from .config_utils import CN, CfgNode, cfg_to_dict, load_cfg_file, merge_cfg
 from .eval_utils import calc_part_acc
-from .loss import (_valid_mean, rot_cosine_loss, rot_points_cd_loss,
-                   rot_points_l2_loss, shape_cd_loss, trans_l2_loss)
+from .loss import (_valid_mean, repulsion_cd_loss, rot_cosine_loss,
+                   rot_points_cd_loss, rot_points_l2_loss, shape_cd_loss,
+                   trans_l2_loss)
 from .rotation import (Rotation3D, quaternion_apply, quaternion_invert,
                        quaternion_multiply, quaternion_to_matrix)
 from .transforms import qrot, random_quaternions, rot_pc, transform_pc

@@ -1,16 +1,18 @@
-"""Assembly losses with masked semantics, on the part-structured chamfer.
+"""Assembly losses with masked semantics, on the port's chamfer.
 
-Port of multi_part_assembly_tpu/utils/loss.py:22-122.  Every loss returns
-a [B] tensor: the mean over each shape's valid parts.
+Port of multi_part_assembly_tpu/utils/loss.py:22-154.  Every loss returns
+a [B] tensor: the mean over each shape's valid parts (over valid part
+pairs for `repulsion_cd_loss`).
 """
 
 import torch
 
-from ..ops.chamfer import chamfer_diag, chamfer_parts
+from ..ops.chamfer import chamfer_diag, chamfer_distance, chamfer_parts
 from .transforms import rot_pc, transform_pc
 
 __all__ = ['_valid_mean', 'trans_l2_loss', 'rot_cosine_loss',
-           'rot_points_l2_loss', 'rot_points_cd_loss', 'shape_cd_loss']
+           'rot_points_l2_loss', 'rot_points_cd_loss', 'shape_cd_loss',
+           'repulsion_cd_matrix', 'repulsion_cd_loss']
 
 
 def _valid_mean(loss_per_part, valids):
@@ -73,3 +75,39 @@ def shape_cd_loss(pts, trans1, trans2, rot1, rot2, valids, training=True):
         return dist1.mean(1) + dist2.mean(1)
     dist = (dist1 + dist2).reshape(B, P, N).mean(-1)
     return _valid_mean(dist, valids_f)
+
+
+def repulsion_cd_matrix(part_pcs, dense_limit=2**27, *, plain=False):
+    """[B, P, P] chamfer of every part against every part of the same shape,
+    padded parts included (JAX loss.py:134-150).
+
+    Up to `dense_limit` pair-distance elements, one `chamfer_distance` call
+    on the broadcast [B*P*P, N, 3] clouds; past it, one call per part i
+    against all parts ([B*P, N, 3] each), the loop that stands in for JAX's
+    lax.scan.  Both give the same distances.  `plain=True` forces the plain
+    version on a CUDA tensor.
+    """
+    B, P, N, _ = part_pcs.shape
+    if B * P * P * N * N <= dense_limit:
+        pts1 = part_pcs[:, :, None].expand(B, P, P, N, 3)
+        pts2 = part_pcs[:, None, :].expand(B, P, P, N, 3)
+        d1, d2 = chamfer_distance(pts1.reshape(B * P * P, N, 3),
+                                  pts2.reshape(B * P * P, N, 3), plain=plain)
+        return (d1.mean(1) + d2.mean(1)).reshape(B, P, P)
+    flat = part_pcs.reshape(B * P, N, 3)
+    rows = []
+    for i in range(P):  # part i of every shape against all its parts
+        tiled = part_pcs[:, i, None].expand(B, P, N, 3).reshape(B * P, N, 3)
+        d1, d2 = chamfer_distance(tiled, flat, plain=plain)
+        rows.append((d1.mean(1) + d2.mean(1)).reshape(B, P))
+    return torch.stack(rows, 1)
+
+
+def repulsion_cd_loss(part_pcs, valids, thre, dense_limit=2**27, *,
+                      plain=False):
+    """Chamfer repulsion pushing parts apart (JAX loss.py:125-154): the mean
+    over valid part pairs of max(thre - cd, 0).  -> [B]"""
+    cd = repulsion_cd_matrix(part_pcs, dense_limit, plain=plain)
+    cd = torch.clamp(thre - cd, min=0.0)
+    valid_mask = valids[:, :, None] * valids[:, None, :]
+    return (cd * valid_mask).sum((1, 2)) / valid_mask.sum((1, 2))

@@ -2,12 +2,15 @@
 
 The same numpy clouds go through `multi_part_assembly_tpu.ops.chamfer`
 (CPU backend; fused mode 'force' runs the Pallas kernels B1-B4 in interpret
-mode, 'off' the jnp fallback) and through the port, which on CPU tensors
-takes its kernels' plain versions.  Tolerances: distances atol 1e-5 (the
-JAX kernels form |x|^2 + |y|^2 - 2x.y from a split-packed matmul, the port
-(dx^2 + dy^2) + dz^2; both f32-accurate on unit-scale clouds); gradients
-atol 1e-4, rtol 1e-4.  Witness numbering differs (JAX pads each part to
-128 lanes), so witnesses are checked against the port's own distances.
+mode, 'off' the unfused route's jnp fallback `_nn_parts_ref`) and through
+the port, which on CPU tensors takes the plain versions of its route: the
+fused route's (B1-B4) under 'auto', the unfused route's (B8) under 'off'.
+Every pairing of the two packages' modes is held to the same tolerances:
+distances atol 1e-5 (the JAX kernels form |x|^2 + |y|^2 - 2x.y from a
+matmul, the port (dx^2 + dy^2) + dz^2; both f32-accurate on unit-scale
+clouds); gradients atol 1e-4, rtol 1e-4.  Witness numbering differs
+between the fused routes (JAX pads each part to 128 lanes), so witnesses
+are checked against the port's own distances.
 """
 
 import jax
@@ -31,11 +34,20 @@ CASES = {
 }
 
 
-@pytest.fixture(params=['force', 'off'])
+# (JAX mode, port mode); the ids of the port's fused route stay the JAX
+# mode's alone
+MODES = {'force': ('force', 'auto'), 'off': ('off', 'auto'),
+         'force-port_off': ('force', 'off'), 'off-port_off': ('off', 'off')}
+
+
+@pytest.fixture(params=sorted(MODES))
 def fused_mode(request):
-    JC.set_fused_mode(request.param)
-    yield request.param
+    jax_mode, port_mode = MODES[request.param]
+    JC.set_fused_mode(jax_mode)
+    TC.set_fused_mode(port_mode)
+    yield jax_mode
     JC.set_fused_mode('auto')
+    TC.set_fused_mode('auto')
 
 
 def _inputs(case, seed=0):
@@ -95,6 +107,23 @@ def test_distances_and_grads_match_jax(fused_mode, case, name):
         np.testing.assert_allclose(o, r, atol=1e-4, rtol=1e-4)
     # CPU tensors take the plain versions: no kernel launched
     assert all(v == 0 for v in TC.LAUNCHES.values())
+
+
+def test_chamfer_pairs_matches_jax(fused_mode):
+    """Each pair a one-part shape; invalid pairs give 0 and no gradient."""
+    x, y, _, w1, w2 = _inputs('multigroup_6_10')
+    M = 7
+    x, y = x[0, :M], y[0, :M]
+    w1, w2 = w1[0, :M], w2[0, :M]
+    pv = np.asarray([1, 0, 1, 1, 0, 1, 1], np.float32)
+    ref = _jax(fused_mode, 'chamfer_pairs', x, y, pv, w1, w2)
+    ours = _torch(TC.chamfer_pairs, x, y, pv, w1, w2)
+    for r, o in zip(ref[:2], ours[:2]):
+        np.testing.assert_allclose(o, r, atol=1e-5, rtol=0)
+    for r, o in zip(ref[2:], ours[2:]):
+        np.testing.assert_allclose(o, r, atol=1e-4, rtol=1e-4)
+    for o in ours:
+        assert (o[pv == 0] == 0).all()
 
 
 @pytest.mark.parametrize('diagonal', [False, True])

@@ -8,9 +8,11 @@ imports no JAX, so it runs on a machine with only PyTorch:
 Tolerances: distances bit for bit and witnesses exactly (the kernel
 computes the plain version's expression with every operation rounded on
 its own); gradients within 1e-5 of the largest gradient, since the
-backward's atomicAdds sum a witness's terms in a varying order.  The
-sampling kernels' points bit for bit and their face draws exactly, for
-the same reason.
+backward's atomicAdds (and index_add_ on the card) sum a witness's terms in
+a varying order.  The same holds for B7 and B8 and for the card against
+the CPU.  The sampling kernels' points bit for bit and their face draws
+exactly, for the same reason.  Losses on the card within 1e-5 relative of
+the CPU's.
 """
 
 import os
@@ -82,7 +84,8 @@ def test_card_matches_cpu(cuda, name):
 
 @pytest.mark.cuda
 def test_launch_counters(cuda):
-    """Each wrapper counts its own launches: one per direction."""
+    """Each wrapper counts its own launches: one per direction.  The fused
+    route launches no B7 or B8."""
     x, y, valids = _inputs(cuda)
     x.requires_grad_()
     TC.reset_launches()
@@ -90,7 +93,111 @@ def test_launch_counters(cuda):
     (d1.sum() + d2.sum()).backward()
     TC.chamfer_diag(x.detach(), y, valids)
     assert TC.LAUNCHES == {'nn_parts': 2, 'nn_diag': 2, 'bwd_parts': 2,
-                           'bwd_diag': 0}
+                           'bwd_diag': 0, 'nn_off': 0, 'nn_dir': 0}
+
+
+@pytest.fixture
+def unfused():
+    TC.set_fused_mode('off')
+    yield
+    TC.set_fused_mode('auto')
+
+
+@pytest.mark.cuda
+def test_unfused_route_launch_counters(cuda, unfused):
+    """The unfused route launches B8 once per direction and none of B1-B4;
+    chamfer_distance launches B7 once per direction."""
+    x, y, valids = _inputs(cuda)
+    x.requires_grad_()
+    TC.reset_launches()
+    d1, d2 = TC.chamfer_parts(x, y, valids)
+    (d1.sum() + d2.sum()).backward()
+    TC.chamfer_diag(x.detach(), y, valids)
+    TC.chamfer_distance(x.detach()[:, 0], y[:, 1])
+    assert TC.LAUNCHES == {'nn_parts': 0, 'nn_diag': 0, 'bwd_parts': 0,
+                           'bwd_diag': 0, 'nn_off': 4, 'nn_dir': 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('diagonal', [False, True])
+def test_nn_parts_kernel_matches_plain(cuda, diagonal):
+    """B8 against its plain version, in the whole-shape form and in the
+    B*P one-part form of the diagonal; and against B1 renumbered."""
+    x, y, valids = _inputs(cuda, N=300)
+    n_parts = valids.to(torch.int32).sum(1, dtype=torch.int32)
+    B, P, N, _ = x.shape
+    if diagonal:
+        n_parts = valids.to(torch.int32).reshape(B * P)
+        x, y = x.view(B * P, 1, N, 3), y.view(B * P, 1, N, 3)
+    kern = TC.nn_parts_cuda(x, y, n_parts)
+    plain = TC.nn_parts_plain(x, y, n_parts)
+    for k, p in zip(kern, plain):
+        assert torch.equal(k, p)
+    d_b1, w_b1 = TC.nn_cuda(x, y, n_parts, False)
+    assert torch.equal(kern[0], d_b1)
+    idx = kern[1].long()
+    renumbered = torch.where(w_b1 >= 0, idx // 384 * N + idx % 384, -1)
+    assert torch.equal(renumbered.to(torch.int32), w_b1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(3, 1000, 2500), (2, 37, 5),
+                                   (70000, 3, 4)],
+                         ids=['n1_ne_n2', 'tiny', 'grid_chunks'])
+def test_nn_dir_kernel_matches_plain(cuda, shape):
+    """B7 against its plain version; 70000 clouds take two launches."""
+    B, N1, N2 = shape
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((B, N1, 3), generator=g, device=cuda)
+    y = torch.randn((B, N2, 3), generator=g, device=cuda)
+    for k, p in zip(TC.nn_dir_cuda(x, y), TC.nn_dir_plain(x, y)):
+        assert torch.equal(k, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', ['chamfer_parts', 'chamfer_diag'])
+def test_unfused_card_matches_cpu(cuda, unfused, name):
+    """Under 'off', B8's distances equal the CPU plain version's bit for
+    bit, and the plain backward's gradients agree to rounding."""
+    fn = getattr(TC, name)
+    out = {}
+    for device in ('cpu', cuda):
+        x, y, valids = _inputs(device)
+        x.requires_grad_()
+        y.requires_grad_()
+        d1, d2 = fn(x, y, valids)
+        w = torch.rand(d1.shape, generator=torch.Generator().manual_seed(0))
+        ((d1 * w.to(device)).sum() + d2.sum()).backward()
+        out[str(device)] = [v.detach().cpu() for v in (d1, d2, x.grad, y.grad)]
+    card, cpu = out['cuda'], out['cpu']
+    for k, c in zip(card[:2], cpu[:2]):
+        assert torch.equal(k, c)
+    for k, c in zip(card[2:], cpu[2:]):
+        torch.testing.assert_close(k, c, atol=1e-5 * float(c.abs().max()),
+                                   rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dense_limit', [2**27, 0], ids=['dense', 'scan'])
+def test_repulsion_card_matches_cpu(cuda, dense_limit):
+    """repulsion_cd_loss through B7 on the card against the CPU, and the
+    kernel against its plain version on the card (loss bit for bit)."""
+    from multi_part_assembly_tpu_torch.utils.loss import repulsion_cd_loss
+    rng = np.random.RandomState(1)
+    pts = (0.05 * rng.randn(2, 6, 200, 3)).astype(np.float32)
+    valids = (np.arange(6)[None] < np.asarray([[3], [6]])).astype(np.float32)
+    out = {}
+    for device, plain in (('cpu', True), (cuda, False), (cuda, True)):
+        p = torch.tensor(pts, device=device, requires_grad=True)
+        loss = repulsion_cd_loss(p, torch.tensor(valids, device=device),
+                                 0.01, dense_limit, plain=plain)
+        loss.sum().backward()
+        out[(str(device), plain)] = (loss.detach().cpu(), p.grad.cpu())
+    (l_cpu, g_cpu), (l_k, g_k), (l_p, g_p) = out.values()
+    assert torch.equal(l_k, l_p)
+    torch.testing.assert_close(g_k, g_p, atol=1e-5 * float(g_p.abs().max()),
+                               rtol=0)
+    torch.testing.assert_close(l_k, l_cpu, rtol=1e-5, atol=0)
 
 
 def _soup_tables(folder, layout, device, faces=(37, 512, 3000, 600)):

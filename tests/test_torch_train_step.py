@@ -10,6 +10,10 @@ the update of one Adam step at lr 1e-3 (atol 2e-5, 2% of the step).
 Adam's first step moves each parameter by lr * g / (|g| + 1e-8), so it
 turns float noise in a gradient element near zero into a step of up to
 lr: elements whose gradient is below 1e-6 are only held to |step| <= lr.
+The same step through the unfused chamfer route (fused mode 'off') gives
+the loss of the fused route within 1e-6 and its gradients within atol
+1e-5, rtol 1e-4 (the two backwards sum a witness's terms in another order,
+and the network carries that rounding on).
 Plus the host data path: the dataset, the loader and a tiny CPU run of
 scripts/train_torch.py.
 """
@@ -40,6 +44,7 @@ from multi_part_assembly_tpu_torch.datasets import (DataLoader,
                                                     augment_geometry_batch)
 from multi_part_assembly_tpu_torch.models import build_model
 from multi_part_assembly_tpu_torch.models.convert import jax_to_state_dict
+from multi_part_assembly_tpu_torch.ops import chamfer as TC
 from multi_part_assembly_tpu_torch.train.core import mon_loss
 from multi_part_assembly_tpu_torch.train.state import build_optimizer
 from multi_part_assembly_tpu_torch.utils import config_utils as TCFG
@@ -193,6 +198,24 @@ def test_adam_step_and_bn_stats_match_jax(step):
         np.testing.assert_allclose(ours_step[signal], ref_step[signal],
                                    atol=2e-5, rtol=0, err_msg=name)
         assert np.abs(ours_step[~signal]).max(initial=0) <= 1e-3 + 1e-9
+
+
+def test_unfused_route_step_matches_fused(step):
+    """One step under fused mode 'off' (B8's plain version and the JAX
+    unfused backward) against the same step under 'auto' (B1-B4's)."""
+    ref, ours = step
+    TC.set_fused_mode('off')
+    try:
+        off = _torch_step(*_raw_batch(), ref)
+    finally:
+        TC.set_fused_mode('auto')
+    for k, v in ours['logs'].items():
+        np.testing.assert_allclose(float(off['logs'][k].detach()),
+                                   float(v.detach()), atol=1e-6, rtol=0,
+                                   err_msg=k)
+    for name, g in ours['grads'].items():
+        np.testing.assert_allclose(off['grads'][name].numpy(), g.numpy(),
+                                   atol=1e-5, rtol=1e-4, err_msg=name)
 
 
 def test_weight_decay_mask_matches_jax(step):
