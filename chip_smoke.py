@@ -9,16 +9,26 @@ Phases, each printing its own line(s); any failure exits non-zero:
   3. kernels: each chamfer kernel against its plain PyTorch version at the
      flagship shapes (B=32, P=20, N=1000), part counts drawn from the
      everyday mix: distances bit for bit, witnesses exactly, gradients
-     within a stated tolerance.  The unfused route's kernel (B8) also in
-     the B*P one-part diagonal form, and against the fused kernel on the
-     same clouds (witnesses renumbered); the reference API's kernel (B7) on
-     one repulsion scan row (640 clouds, 1000 points against 1000) and on
-     32 clouds of 1000 against 2500 points.  Then both sampling kernels
-     (dense, chunked) against their plain versions on the synthetic
-     everyday set's tables and on a ragged set of triangle soups, at an
-     everyday batch's row count and at the dense bound K = B*P: points bit
-     for bit, face draws exactly, and dense equal to chunked.  Kernel and
-     plain times from CUDA events;
+     within a stated tolerance.  B1/B3 (one kernel, both directions a
+     launch) also on [20] * 8, on tie-heavy clouds (a 1/64 grid with
+     duplicated points), on fully overlapping parts and on parts spread
+     over [-2, 2]^3; in the whole-shape mode the pruned part-pair list
+     against the dense list (the main path's), bit for bit, and the card's
+     keep rule against the plain one, which must drop pairs of the spread
+     parts; both lists timed on the everyday mix and on the spread parts,
+     with pairs a second, the share of the bound and each kernel's device
+     time behind one call (torch.profiler).  The unfused route's kernel
+     (B8) also in the B*P one-part diagonal form, and against B1 on the
+     same clouds (witnesses renumbered), both timed; the reference API's
+     kernel (B7) on one repulsion scan row (640 clouds, 1000 points against
+     1000) and on 32 clouds of 1000 against 2500 points.  Then both
+     sampling kernels (dense, chunked) against their plain versions on the
+     synthetic everyday set's tables and on a ragged set of triangle soups,
+     at an everyday batch's row count and at the dense bound K = B*P:
+     points bit for bit, face draws exactly, and dense equal to chunked.
+     Kernel and plain times from CUDA events, each beside its bound (the
+     larger of its operations over the card's peak and its bytes over the
+     memory rate);
   4. slice: one PN-Transformer MoN loss and its gradients on the card
      against the same step on the CPU (plain chamfer), same weights; then
      repulsion_cd_loss forward and backward at flagship shapes through B7,
@@ -56,6 +66,9 @@ import torch  # noqa: E402
 
 from multi_part_assembly_tpu_torch.datasets import \
     device_sampler as DS  # noqa: E402
+from multi_part_assembly_tpu_torch.datasets import mesh_io  # noqa: E402
+from multi_part_assembly_tpu_torch.datasets.mesh_io import \
+    MeshSampler  # noqa: E402
 from multi_part_assembly_tpu_torch.ops import chamfer as C  # noqa: E402
 from multi_part_assembly_tpu_torch.ops import cuda_build  # noqa: E402
 
@@ -72,8 +85,8 @@ TPU = 'multi_part_assembly_tpu/ops/chamfer.py'
 TPU_DS = 'multi_part_assembly_tpu/datasets/device_sampler.py'
 # (name, launch counter, TPU kernel it replaces, source)
 KERNELS = [
-    ('chamfer_nn[parts]', 'nn_parts', f'{TPU}:483', CHAMFER_CU),
-    ('chamfer_nn[diag]', 'nn_diag', f'{TPU}:556', CHAMFER_CU),
+    ('chamfer_pair[parts]', 'nn_parts', f'{TPU}:483', CHAMFER_CU),
+    ('chamfer_pair[diag]', 'nn_diag', f'{TPU}:556', CHAMFER_CU),
     ('chamfer_bwd[parts]', 'bwd_parts', f'{TPU}:632', CHAMFER_CU),
     ('chamfer_bwd[diag]', 'bwd_diag', f'{TPU}:687', CHAMFER_CU),
     ('sample_dense', 'sample_dense', f'{TPU_DS}:212', SAMPLER_CU),
@@ -88,6 +101,12 @@ RAGGED_FACES = [37, 512, 3000, 20000]
 # its gradients match the plain index_add_ only to float rounding:
 # |kernel - plain| <= GRAD_RTOL * max|plain| + GRAD_ATOL.
 GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-6
+# Peaks of one H100 SXM at 700 W (NVIDIA's data sheet): FP32 operations
+# that cannot fuse into FMAs (half the 67 TFLOP/s figure, which counts an
+# FMA as two), and HBM3 bytes a second.  A nearest-neighbour pair costs
+# PAIR_OPS of them: three subtractions, three products, two additions and
+# one minimum for each direction, the pair counted once.
+PEAK_OPS, PEAK_BYTES, PAIR_OPS = 33.5e12, 3.35e12, 10
 
 
 def phase_device():
@@ -141,15 +160,40 @@ def _call_ms(fn, iters):
     return 1000.0 * (time.perf_counter() - t0) / iters
 
 
-def _clouds(counts, seed):
+def _bound(ops=0.0, nbytes=0.0):
+    """(bound_ms, bound_by): the least time the card could take for `ops`
+    operations at PEAK_OPS and `nbytes` bytes at PEAK_BYTES."""
+    t_ops, t_bytes = ops / PEAK_OPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), \
+        'operations' if t_ops >= t_bytes else 'bytes'
+
+
+def _pair_bound(pairs, b):
+    """Bound of a nearest-neighbour function over `pairs` point pairs,
+    both directions, each pair counted once (PAIR_OPS operations); bytes:
+    both clouds read, two distances and two witnesses written a point."""
+    return _bound(PAIR_OPS * pairs, b * P * N * (2 * 12 + 4 * 4) + 4 * b)
+
+
+def _clouds(counts, seed, kind='everyday'):
     """Two posed part clouds [B, P, N, 3]: each part a 0.1-scale cloud
-    around a centre in [-0.4, 0.4]^3, the second a jittered copy."""
+    around a centre in [-0.4, 0.4]^3, the second a jittered copy.  'ties':
+    both on a 1/64 grid, with every fourth point duplicated, so that exact
+    distance ties abound; 'overlap': every centre at 0, so that no part
+    pair can be pruned; 'spread': centres in [-2, 2]^3, so that pruning
+    drops the pairs of distant parts."""
     g = torch.Generator(device='cuda').manual_seed(seed)
     b = len(counts)
     centres = (torch.rand((b, P, 1, 3), generator=g, device='cuda') - 0.5) \
-        * 0.8
+        * (4.0 if kind == 'spread' else 0.8)
+    if kind == 'overlap':
+        centres.zero_()
     x = centres + 0.1 * torch.randn((b, P, N, 3), generator=g, device='cuda')
     y = x + 0.02 * torch.randn((b, P, N, 3), generator=g, device='cuda')
+    if kind == 'ties':
+        x, y = torch.round(x * 64) / 64, torch.round(y * 64) / 64
+        x[:, :, 1::4] = x[:, :, 0::4]
+        y[:, :, 2::4] = y[:, :, 1::4]
     valids = (torch.arange(P, device='cuda')[None] <
               torch.as_tensor(counts, device='cuda')[:, None]).float()
     x = x * valids[:, :, None, None]
@@ -157,20 +201,76 @@ def _clouds(counts, seed):
     return x.contiguous(), y.contiguous(), valids
 
 
-def _check_pair(counts, seed, diagonal, timed):
-    """One kernel pair against its plain version; returns (fwd, bwd) rows."""
-    x, y, valids = _clouds(counts, seed)
-    n_parts = valids.to(torch.int32).sum(1, dtype=torch.int32)
-
-    def fwd(nn):
-        return nn(x, y, n_parts, diagonal) + nn(y, x, n_parts, diagonal)
-
-    d1k, w1k, d2k, w2k = fwd(C.nn_cuda)
-    d1p, w1p, d2p, w2p = fwd(C.nn_plain)
+def _profile(fn, iters):
+    """{kernel name: mean device ms per call of fn()} over `iters` calls,
+    from torch.profiler."""
+    fn()
     torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, 'device_time_total', None)
+        if us is None:
+            us = getattr(ev, 'cuda_time_total', 0.0)
+        if us and ev.device_type == torch.autograd.DeviceType.CUDA:
+            name = ev.key.replace('(anonymous namespace)::', '')
+            out[name.split('(')[0].strip() or name] = us / 1e3 / iters
+    return out
+
+
+def _check_pair(counts, seed, diagonal, timed, kind='everyday'):
+    """The B1/B3 kernel (the main path's dense list) against its plain
+    version, bit for bit; in the whole-shape mode also the pruned list
+    against the dense list and the card's keep rule against the plain one
+    (on 'spread' clouds it must drop pairs); then B2/B4 on the witnesses.
+    Returns (fwd, bwd) rows (err, ms, plain ms, bound ms, bound by), the
+    forward's for the dense list."""
+    x, y, valids = _clouds(counts, seed, kind)
+    n_parts = valids.to(torch.int32).sum(1, dtype=torch.int32)
+    b = len(counts)
+    sizes = [min(int(c), P) for c in counts]
+    dense_pairs = sum((s if diagonal else s * s) for s in sizes) * N * N
+
+    kern = C.nn_pair_cuda(x, y, n_parts, diagonal)
+    d1p, d2p, w1p, w2p = C.nn_pair_plain(x, y, n_parts, diagonal)
+    torch.cuda.synchronize()
+    d1k, d2k, w1k, w2k = kern
     fwd_err = max(float((d1k - d1p).abs().max()),
                   float((d2k - d2p).abs().max()))
     mismatches = int((w1k != w1p).sum() + (w2k != w2p).sum())
+    mode = 'diag' if diagonal else 'parts'
+    tag = f'{kind} counts={sorted(counts, reverse=True)[:3]}.. B={b}'
+    print(f'kernels: chamfer_pair[{mode}] {tag}: max|d kernel - d plain| = '
+          f'{fwd_err:.3e} (bitwise required), witness mismatches = '
+          f'{mismatches}', flush=True)
+    if fwd_err != 0.0 or mismatches != 0:
+        raise AssertionError(f'chamfer_pair[{mode}] {kind} disagrees with '
+                             'its plain version')
+    kept_pairs = dense_pairs
+    if not diagonal:
+        work = torch.empty(1 + b * P * P, dtype=torch.int32, device='cuda')
+        pruned = C.nn_pair_cuda(x, y, n_parts, False, prune=True, work=work)
+        same = all(torch.equal(k, d) for k, d in zip(pruned, kern))
+        keep_k = C.work_keep(work, b, P)
+        keep_p = C.prune_keep_plain(x, y, n_parts)
+        keep_diff = int((keep_k != keep_p).sum())
+        kept_pairs = int(keep_k.sum()) * N * N
+        print(f'kernels: chamfer_pair[parts] {tag}: pruned list bitwise '
+              f'equal to the dense list {same}; kept part pairs '
+              f'{int(keep_k.sum())} of {dense_pairs // (N * N)} (share '
+              f'{kept_pairs / dense_pairs:.4f}); keep mask card vs plain '
+              f'mismatches {keep_diff}', flush=True)
+        if not same or keep_diff:
+            raise AssertionError(f'chamfer_pair[parts] {kind}: pruning '
+                                 'changed the result or the keep rule')
+        if kind == 'spread' and not kept_pairs < dense_pairs:
+            raise AssertionError('chamfer_pair[parts] spread: pruning '
+                                 'dropped no part pair')
 
     g = torch.Generator(device='cuda').manual_seed(seed + 1)
     g1 = torch.rand(d1k.shape, generator=g, device='cuda')
@@ -189,39 +289,53 @@ def _check_pair(counts, seed, diagonal, timed):
                   float((dyk - dyp).abs().max()))
     scale = max(float(dxp.abs().max()), float(dyp.abs().max()))
     bwd_tol = GRAD_RTOL * scale + GRAD_ATOL
-
-    mode = 'diag' if diagonal else 'parts'
-    tag = f'counts={sorted(counts, reverse=True)[:3]}.. B={len(counts)}'
-    print(f'kernels: chamfer_nn[{mode}] {tag}: max|d kernel - d plain| = '
-          f'{fwd_err:.3e} (bitwise required), witness mismatches = '
-          f'{mismatches}', flush=True)
     print(f'kernels: chamfer_bwd[{mode}] {tag}: max|grad kernel - grad '
           f'plain| = {bwd_err:.3e} (tolerance {bwd_tol:.3e})', flush=True)
-    if fwd_err != 0.0 or mismatches != 0:
-        raise AssertionError(f'chamfer_nn[{mode}] disagrees with its plain '
-                             'version')
     if not bwd_err <= bwd_tol:
         raise AssertionError(f'chamfer_bwd[{mode}] disagrees with its '
                              'plain version')
     if not timed:
         return None
-    times = {
-        'fwd': (_cuda_ms(lambda: fwd(C.nn_cuda), 20),
-                _cuda_ms(lambda: fwd(C.nn_plain), 3)),
-        'bwd': (_cuda_ms(lambda: bwd(C.scatter_grad_cuda), 20),
-                _cuda_ms(lambda: bwd(C.scatter_grad_plain), 3)),
-    }
-    for kind, (k_ms, p_ms) in times.items():
-        name = f'chamfer_{"nn" if kind == "fwd" else "bwd"}[{mode}]'
-        print(f'kernels: {name} both directions: kernel {k_ms:.4f} ms, '
-              f'plain {p_ms:.4f} ms', flush=True)
-    return {'fwd': (fwd_err, *times['fwd']), 'bwd': (bwd_err, *times['bwd'])}
+
+    def kernel(prune):
+        return lambda: C.nn_pair_cuda(x, y, n_parts, diagonal, prune=prune)
+
+    lists = [('dense', False, dense_pairs)]
+    if not diagonal:
+        lists.append(('pruned', True, kept_pairs))
+    times = {}
+    for label, prune, pairs in lists:
+        ms = times[label] = _cuda_ms(kernel(prune), 20)
+        bound_ms, _ = _pair_bound(pairs, b)
+        split = ', '.join(f'{name} {t:.4f} ms' for name, t in sorted(
+            _profile(kernel(prune), 20).items(), key=lambda kv: -kv[1]))
+        print(f'kernels: chamfer_pair[{mode}] {kind} both directions, '
+              f'{label} list: kernel {ms:.4f} ms, {pairs / (ms / 1e3):.4e} '
+              f'pairs/s, bound {bound_ms:.4f} ms ({PAIR_OPS} operations a '
+              f'pair at {PEAK_OPS:.3e}/s), share of the bound '
+              f'{bound_ms / ms:.3f}; device time by kernel: '
+              f'{split or "not recorded"}', flush=True)
+    p_ms = _cuda_ms(lambda: C.nn_pair_plain(x, y, n_parts, diagonal), 3)
+    print(f'kernels: chamfer_pair[{mode}] plain {p_ms:.4f} ms', flush=True)
+    valid_pts = sum(sizes) * N
+    bwd_bound = _bound(nbytes=64 * valid_pts + 8 * (b * P * N - valid_pts))
+    kb_ms = _cuda_ms(lambda: bwd(C.scatter_grad_cuda), 20)
+    pb_ms = _cuda_ms(lambda: bwd(C.scatter_grad_plain), 3)
+    print(f'kernels: chamfer_bwd[{mode}] both directions: kernel '
+          f'{kb_ms:.4f} ms, plain {pb_ms:.4f} ms, bound {bwd_bound[0]:.4f} '
+          f'ms (bytes), share {bwd_bound[0] / kb_ms:.3f}', flush=True)
+    return {'fwd': (fwd_err, times['dense'], p_ms,
+                    *_pair_bound(dense_pairs, b)),
+            'bwd': (bwd_err, kb_ms, pb_ms, *bwd_bound)}
 
 
 def _check_nn_parts(counts, seed, timed):
     """B8 against its plain version and against B1 on the same clouds, in
     the whole-shape form and the B*P one-part diagonal form; returns (err,
-    kernel ms, plain ms) of the whole-shape form, both directions."""
+    kernel ms, plain ms, bound ms, bound by) of the whole-shape form, both
+    directions.  B8 still runs the one-direction scan that B1 ran before
+    its redesign, so the two times side by side are the before and after
+    on one card."""
     x, y, valids = _clouds(counts, seed)
     b = len(counts)
     npad = (N + 127) // 128 * 128
@@ -236,12 +350,12 @@ def _check_nn_parts(counts, seed, timed):
         def fwd(nn):
             return nn(q, t, n_p) + nn(t, q, n_p)
 
-        def fused():
-            return C.nn_cuda(q, t, n_p, False) + C.nn_cuda(t, q, n_p, False)
+        def fused(prune=False):
+            return C.nn_pair_cuda(q, t, n_p, False, prune=prune)
 
         d1k, i1k, d2k, i2k = fwd(C.nn_parts_cuda)
         d1p, i1p, d2p, i2p = fwd(C.nn_parts_plain)
-        d1f, w1f, d2f, w2f = fused()
+        d1f, d2f, w1f, w2f = fused()
         torch.cuda.synchronize()
         err = max(float((d1k - d1p).abs().max()),
                   float((d2k - d2p).abs().max()))
@@ -262,24 +376,28 @@ def _check_nn_parts(counts, seed, timed):
         pad_nonzero = int((i1k[~valid] != 0).sum() + (i2k[~valid] != 0).sum())
         print(f'kernels: nn_parts[off] {form} {tag}: max|d kernel - d plain| '
               f'= {err:.3e} (bitwise required), index mismatches = '
-              f'{mismatches}; against chamfer_nn[parts]: max|d| = '
+              f'{mismatches}; against chamfer_pair[parts]: max|d| = '
               f'{b1_err:.3e}, witness mismatches after renumbering = '
               f'{b1_mismatches}, nonzero indices at padded parts = '
               f'{pad_nonzero}', flush=True)
         if err != 0.0 or mismatches or b1_err != 0.0 or b1_mismatches or \
                 pad_nonzero:
             raise AssertionError(f'nn_parts[off] {form} disagrees with its '
-                                 'plain version or with chamfer_nn[parts]')
+                                 'plain version or with chamfer_pair[parts]')
         if not timed:
             continue
         k_ms = _cuda_ms(lambda: fwd(C.nn_parts_cuda), 20)
         p_ms = _cuda_ms(lambda: fwd(C.nn_parts_plain), 3)
-        f_ms = _cuda_ms(fused, 20)
+        f_ms = _cuda_ms(lambda: fused(True), 20)
+        fd_ms = _cuda_ms(fused, 20)
         print(f'kernels: nn_parts[off] {form} both directions: kernel '
-              f'{k_ms:.4f} ms, plain {p_ms:.4f} ms; chamfer_nn[parts] on '
-              f'the same clouds {f_ms:.4f} ms', flush=True)
+              f'{k_ms:.4f} ms, plain {p_ms:.4f} ms; chamfer_pair[parts] on '
+              f'the same clouds {f_ms:.4f} ms (pruned list), {fd_ms:.4f} ms '
+              f'(dense list): {k_ms / fd_ms:.2f}x faster at equal work',
+              flush=True)
         if form == 'whole':
-            result = (err, k_ms, p_ms)
+            pairs = sum(min(int(c), P) ** 2 for c in counts) * N * N
+            result = (err, k_ms, p_ms, *_pair_bound(pairs, b))
     return result
 
 
@@ -336,10 +454,15 @@ def _check_nn_dir(x, y, label, timed):
     k1_ms = _cuda_ms(lambda: C.nn_dir_cuda(x, y), 20)
     p_ms = _cuda_ms(lambda: fwd(C.nn_dir_plain), 3)
     pairs = 2 * x.shape[0] * x.shape[1] * y.shape[1]
+    # one chamfer: each pair counted once, both directions
+    bound = _bound(PAIR_OPS * pairs / 2,
+                   x.numel() * 4 + y.numel() * 4 +
+                   8 * (x.shape[0] * x.shape[1] + y.shape[0] * y.shape[1]))
     print(f'kernels: nn_dir {label} both directions: kernel {k_ms:.4f} ms '
           f'(one direction {k1_ms:.4f} ms; {pairs / (k_ms / 1e3):.3e} '
-          f'pairs/s), plain {p_ms:.4f} ms', flush=True)
-    return (err, k_ms, p_ms)
+          f'pair distances/s), plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms '
+          f'({bound[1]}), share {bound[0] / k_ms:.3f}', flush=True)
+    return (err, k_ms, p_ms, *bound)
 
 
 def phase_kernels():
@@ -352,7 +475,12 @@ def phase_kernels():
         r = _check_pair(mix.tolist(), 1, diagonal, timed=True)
         results[f'nn_{mode}'] = r['fwd']
         results[f'bwd_{mode}'] = r['bwd']
-        _check_pair([20] * 8, 2, diagonal, timed=False)
+        for counts, seed, kind in (([20] * 8, 2, 'everyday'),
+                                   (mix.tolist(), 3, 'ties'),
+                                   (mix.tolist(), 4, 'overlap'),
+                                   (mix.tolist(), 5, 'spread')):
+            _check_pair(counts, seed, diagonal, timed=kind == 'spread',
+                        kind=kind)
     results['nn_off'] = _check_nn_parts(mix.tolist(), 1, timed=True)
     _check_nn_parts([20] * 8, 2, timed=False)
     _time_routes(mix.tolist(), 1)
@@ -429,10 +557,17 @@ def _check_sampler(name, tables, slots, seed):
         k_ms = _cuda_ms(lambda: kern(t.table, t.n_faces, slots, u), 100)
         p_ms = _cuda_ms(lambda: plain(t.table, t.n_faces, slots, u), 20)
         k_call = _call_ms(lambda: kern(t.table, t.n_faces, slots, u), 100)
+        # a point reads its three uniforms, its triangle's nine floats and
+        # (dense) its acceptance and alias or (chunked) its acceptance, and
+        # writes three floats
+        point_bytes = 12 + 36 + (8 if layout == 'dense' else 4) + 12
+        bound = _bound(nbytes=point_bytes * slots.shape[0] * N)
         print(f'kernels: sample_{layout} {tag}: kernel {k_ms:.4f} ms on the '
               f'device ({k_call:.4f} ms per call by the host clock), plain '
-              f'{p_ms:.4f} ms ({t.nbytes} table bytes)', flush=True)
-        result[layout] = (out[layout][0], k_ms, p_ms)
+              f'{p_ms:.4f} ms ({t.nbytes} table bytes), bound '
+              f'{bound[0]:.4f} ms (bytes), share {bound[0] / k_ms:.3f}',
+              flush=True)
+        result[layout] = (out[layout][0], k_ms, p_ms, *bound)
     return result
 
 
@@ -761,6 +896,9 @@ def main():
         n_pieces = _make_everyday_set(data_dir)
         print(f'data: {n_pieces} pieces in 128 shapes (detail-8 boxes, '
               f'768 faces each)', flush=True)
+        print(f'data: host mesh sampler native (C++) '
+              f'{MeshSampler().is_native}, library {mesh_io._LIB_PATH}',
+              flush=True)
         results = phase_kernels()
         results.update(phase_sampler(data_dir, tmp))
         phase_slice()
@@ -768,10 +906,15 @@ def main():
         launches = phase_main(data_dir, tmp)
     # B7 runs on no training path: its count is the repulsion runs'
     launches['nn_dir'] = repulsion_launches['nn_dir']
+    # no single PyTorch call returns a nearest neighbour with its index, a
+    # witness scatter with its gather, or an alias-table surface sample:
+    # library_ms is null for every kernel
     summary = {'kernels': [
         {'name': name, 'route': 'cuda', 'source': source, 'replaces': rep,
          'launches': launches[key], 'max_abs_err': results[key][0],
-         'ms': results[key][1], 'plain_ms': results[key][2]}
+         'ms': results[key][1], 'plain_ms': results[key][2],
+         'bound_ms': results[key][3], 'bound_by': results[key][4],
+         'library_ms': None}
         for name, key, rep, source in KERNELS]}
     print(json.dumps(summary), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -15,12 +15,15 @@ chamfer.py).  Public contracts keep the JAX layout: part clouds are
 
 Two routes serve the part-structured functions, picked by
 `set_fused_mode` or `MPA_CHAMFER_FUSED` (JAX :948-983):
-  - 'auto' and 'force' (the default): one launch of the nearest-neighbour
-    kernel (csrc/chamfer.cu `mpa_chamfer_nn`, B1/B3) per direction, which
-    records the first-hit witness of every point as a flat index into the
-    other cloud's [P*N] points (-1 at padded parts); the backward is one
-    launch of the witness-scatter kernel (`mpa_chamfer_bwd`, B2/B4) per
-    direction.
+  - 'auto' and 'force' (the default): one call of `mpa_chamfer_pair`
+    (csrc/chamfer.cu, B1/B3) gives both directions from one main launch,
+    and records the first-hit witness of every point as a flat index into
+    the other cloud's [P*N] points (-1 at padded parts); the backward is
+    one launch of the witness-scatter kernel (`mpa_chamfer_bwd`, B2/B4) per
+    direction.  The whole-shape forward visits every pair of valid parts;
+    `nn_pair_cuda(..., prune=True)` visits only those that the JAX
+    package's exact triangle-inequality rule keeps (JAX :740-790), with
+    bit-identical results.
   - 'off', the JAX unfused route: one launch of `mpa_nn_parts` (B8) per
     direction, witnesses in the JAX numbering part * Npad + local (0 at
     padded parts), and a plain PyTorch backward (gather + index_add_, XLA's
@@ -28,12 +31,12 @@ Two routes serve the part-structured functions, picked by
 `chamfer_distance` and `nn_distance` launch `mpa_nn_dir` (B7) once per
 direction; their backward is plain PyTorch, as XLA's is in JAX.
 
-Beside the kernels sit their plain PyTorch versions (`nn_plain`,
-`scatter_grad_plain`, `nn_parts_plain`, `nn_dir_plain`), computing the same
-distance expression in the same order.  A CPU tensor takes the plain
-version of its route, since no kernel exists for the CPU; a CUDA tensor
-launches the kernel or raises.  `LAUNCHES` counts the kernel launches, one
-key per (kernel, mode).
+Beside the kernels sit their plain PyTorch versions (`nn_pair_plain` and
+`prune_keep_plain`, `scatter_grad_plain`, `nn_parts_plain`,
+`nn_dir_plain`), computing the same distance expression in the same order.
+A CPU tensor takes the plain version of its route, since no kernel exists
+for the CPU; a CUDA tensor launches the kernel or raises.  `LAUNCHES`
+counts the kernel launches, one key per (kernel, mode).
 """
 
 import functools
@@ -47,10 +50,11 @@ from .cuda_build import load_library
 __all__ = ['chamfer_parts', 'chamfer_diag', 'chamfer_pairs',
            'chamfer_parts_ref', 'chamfer_diag_ref', 'chamfer_witnesses',
            'chamfer_distance', 'nn_distance', 'chamfer_distance_ref',
-           'set_fused_mode', 'fused_mode', 'nn_cuda', 'nn_plain',
-           'scatter_grad_cuda', 'scatter_grad_plain', 'nn_parts_cuda',
-           'nn_parts_plain', 'nn_dir_cuda', 'nn_dir_plain', 'LAUNCHES',
-           'reset_launches']
+           'set_fused_mode', 'fused_mode', 'nn_pair_cuda', 'work_keep',
+           'nn_pair_plain', 'nn_plain', 'pack_keys', 'unpack_keys',
+           'prune_keep_plain', 'scatter_grad_cuda',
+           'scatter_grad_plain', 'nn_parts_cuda', 'nn_parts_plain',
+           'nn_dir_cuda', 'nn_dir_plain', 'LAUNCHES', 'reset_launches']
 
 LAUNCHES = {'nn_parts': 0, 'nn_diag': 0, 'bwd_parts': 0, 'bwd_diag': 0,
             'nn_off': 0, 'nn_dir': 0}
@@ -103,6 +107,9 @@ def fused_mode():
 
 set_fused_mode(os.environ.get('MPA_CHAMFER_FUSED', 'auto'))
 
+# relative slack of the pruning bounds (JAX chamfer.py:776-778)
+_PRUNE_SLACK = 1e-4
+
 
 # ---------------------------------------------------------------------------
 # CUDA kernels
@@ -126,37 +133,65 @@ def _check_rc(rc, what):
         raise RuntimeError(f'{what}: CUDA error {rc}')
 
 
-def nn_cuda(query, target, n_parts, diagonal):
-    """Kernel: nearest neighbour of every valid query point among the valid
-    target parts (or its own part when `diagonal`).
+def nn_pair_cuda(x, y, n_parts, diagonal, prune=False, work=None):
+    """Kernel B1/B3: both directions of the part-structured nearest
+    neighbour in one main launch: every valid point of x among the valid
+    parts of y (or its own part when `diagonal`), and every valid point of
+    y among those of x.
 
-    Replaces the distance/witness half of `_fused_parts_fwd_kernel`
-    (chamfer.py:483) and `_fused_diag_fwd_kernel` (:556), one direction
-    per launch.
+    Replaces `_fused_parts_fwd_kernel` (chamfer.py:483) and
+    `_fused_diag_fwd_kernel` (:556), launched by `_fused_parts_fwd_pallas`
+    (:793).  The whole-shape mode visits every pair of valid parts, or with
+    `prune` only the pairs that `prune_keep_plain`'s rule keeps; the
+    results are the same bit for bit.
 
     Args:
-        query, target: [B, P, N, 3] f32 CUDA, contiguous
+        x, y: [B, P, N, 3] f32 CUDA, contiguous
         n_parts: [B] int32 valid-prefix counts
+        work: optional [1 + B*P*P] int32 CUDA tensor that receives the list
+            of visited part pairs (`work_keep` decodes it)
 
     Returns:
-        dist [B, P, N] f32 (0 at padded parts), witness [B, P, N] int32
-        (flat index into target's [P*N] points, -1 at padded parts)
+        dist1, dist2 [B, P, N] f32 (0 at padded parts), witness1, witness2
+        [B, P, N] int32 (flat index into the other cloud's [P*N] points,
+        -1 at padded parts)
     """
-    B, P, N, _ = query.shape
-    _require(query, 'query', torch.float32, (B, P, N, 3))
-    _require(target, 'target', torch.float32, (B, P, N, 3))
+    B, P, N, _ = x.shape
+    _require(x, 'x', torch.float32, (B, P, N, 3))
+    _require(y, 'y', torch.float32, (B, P, N, 3))
     _require(n_parts, 'n_parts', torch.int32, (B, ))
-    dist = torch.empty((B, P, N), dtype=torch.float32, device=query.device)
-    witness = torch.empty((B, P, N), dtype=torch.int32, device=query.device)
+    if B * P * P >= 2**31:
+        raise ValueError(f'B * P * P = {B * P * P}: the work list holds '
+                         'int32 part-pair ids')
+    mode = 2 if diagonal else int(bool(prune))
+    dev = x.device
+    keys = torch.empty(2 * B * P * N, dtype=torch.int64, device=dev)
+    if work is None:
+        work = torch.empty(1 + B * P * P, dtype=torch.int32, device=dev)
+    _require(work, 'work', torch.int32, (1 + B * P * P, ))
+    d1, d2 = (torch.empty((B, P, N), dtype=torch.float32, device=dev)
+              for _ in range(2))
+    w1, w2 = (torch.empty((B, P, N), dtype=torch.int32, device=dev)
+              for _ in range(2))
     lib = load_library()
-    with torch.cuda.device(query.device):
-        rc = lib.mpa_chamfer_nn(
-            query.data_ptr(), target.data_ptr(), n_parts.data_ptr(),
-            dist.data_ptr(), witness.data_ptr(), B, P, N, int(diagonal),
+    with torch.cuda.device(dev):
+        rc = lib.mpa_chamfer_pair(
+            x.data_ptr(), y.data_ptr(), n_parts.data_ptr(), keys.data_ptr(),
+            work.data_ptr(), d1.data_ptr(), d2.data_ptr(), w1.data_ptr(),
+            w2.data_ptr(), B, P, N, mode,
             torch.cuda.current_stream().cuda_stream)
-    _check_rc(rc, 'mpa_chamfer_nn')
+    _check_rc(rc, 'mpa_chamfer_pair')
     LAUNCHES['nn_diag' if diagonal else 'nn_parts'] += 1
-    return dist, witness
+    return d1, d2, w1, w2
+
+
+def work_keep(work, B, P):
+    """The part-pair list that `nn_pair_cuda` wrote into `work`, as a
+    [B, P, P] bool mask (x-part, y-part); with `prune`, the kernel side of
+    `prune_keep_plain`.  Reads the list's count, so it synchronises."""
+    keep = torch.zeros(B * P * P, dtype=torch.bool, device=work.device)
+    keep[work[1:1 + int(work[0])].long()] = True
+    return keep.view(B, P, P)
 
 
 def scatter_grad_cuda(query, target, witness, grad, grad_query, grad_target,
@@ -264,9 +299,14 @@ def _sqdist(a, b):
     return (dx * dx + dy * dy) + dz * dz
 
 
-def nn_plain(query, target, n_parts, diagonal):
-    """Plain version of `nn_cuda`, same contract.  Loops over the batch;
-    torch.min returns the first minimum, the kernel's first-hit rule."""
+def nn_plain(query, target, n_parts, diagonal, keep=None):
+    """Plain nearest neighbour, one direction: every valid query point
+    among the valid target parts (its own part when `diagonal`).  Returns
+    dist [B, P, N] f32 (0 at padded parts) and witness [B, P, N] int32
+    (flat index into target's [P*N] points, -1 at padded parts).  Loops
+    over the batch; torch.min returns the first minimum, the kernels'
+    first-hit rule.  `keep` ([B, P, P] bool, query part x target part)
+    restricts the whole-shape form to the kept part pairs."""
     B, P, N, _ = query.shape
     dist = query.new_zeros((B, P, N))
     witness = torch.full((B, P, N), -1, dtype=torch.int32,
@@ -284,11 +324,79 @@ def nn_plain(query, target, n_parts, diagonal):
         t = target[b, :n_p].reshape(n_p * N, 3)
         d_out = dist[b, :n_p].view(-1)
         w_out = witness[b, :n_p].view(-1)
+        part = torch.arange(n_p * N, device=query.device) // N
         for r in range(0, n_p * N, _PLAIN_ROWS):
-            m, a = _sqdist(q[r:r + _PLAIN_ROWS], t).min(dim=-1)
+            d = _sqdist(q[r:r + _PLAIN_ROWS], t)
+            if keep is not None:
+                kept = keep[b, :n_p, :n_p][part[r:r + _PLAIN_ROWS]][:, part]
+                d = d.masked_fill(~kept, float('inf'))
+            m, a = d.min(dim=-1)
             d_out[r:r + _PLAIN_ROWS] = m
             w_out[r:r + _PLAIN_ROWS] = a.to(torch.int32)
     return dist, witness
+
+
+def nn_pair_plain(x, y, n_parts, diagonal, keep=None):
+    """Plain version of `nn_pair_cuda`, same contract: `nn_plain` in both
+    directions, restricted to the part pairs of `keep` ([B, P, P] bool,
+    x-part x y-part) when it is given."""
+    d1, w1 = nn_plain(x, y, n_parts, diagonal, keep)
+    d2, w2 = nn_plain(y, x, n_parts, diagonal,
+                      None if keep is None else keep.transpose(1, 2))
+    return d1, d2, w1, w2
+
+
+def pack_keys(dist, witness):
+    """B1/B3's packed minimum, as int64: (float bits of dist) << 32 |
+    (index as uint32; the kernel stores the first index of an aligned
+    group of 8 candidates and resolves it to the witness at the end).  For
+    dist >= +0 the order of the keys is the lexicographic order of (dist,
+    index), so their minimum holds the smallest index among equal minima,
+    in whatever order they are merged."""
+    bits = dist.float().contiguous().view(torch.int32).long()
+    return (bits << 32) | (witness.long() & 0xFFFFFFFF)
+
+
+def unpack_keys(keys):
+    """Inverse of `pack_keys`: (dist f32, witness int32)."""
+    dist = (keys >> 32).to(torch.int32).view(torch.float32)
+    witness = (keys & 0xFFFFFFFF).to(torch.int32)
+    return dist, witness
+
+
+def prune_keep_plain(x, y, n_parts):
+    """The exact part-pair keep rule of the whole-shape forward, the JAX
+    package's `_forward_pairs` at one y-part a group (chamfer.py:740-790).
+
+    With per-part centroids c and radii r (largest distance to the
+    centroid), D_ij = |c1_i - c2_j| and rsum_ij = r1_i + r2_j, every
+    distance between x-part i and y-part j is at least lb_ij = max(D_ij -
+    rsum_ij - slack, 0), and every point of x-part i has a neighbour
+    within ub1_i = min_j (D_ij + rsum_ij) (ub2_j likewise for y).  Pair
+    (i, j) is kept when lb_ij <= ub1_i or lb_ij <= ub2_j: a dropped pair can
+    neither win nor tie a minimum.  The slack, 1e-4 (D + rsum), covers the
+    rounding of the reductions.
+
+    Args:
+        x, y: [B, P, N, 3] f32;  n_parts: [B] int
+
+    Returns:
+        [B, P, P] bool, False at every pair with a padded part
+    """
+    P = x.shape[1]
+    c1, c2 = x.mean(2), y.mean(2)
+    r1 = ((x - c1[:, :, None]) ** 2).sum(-1).amax(2).sqrt()
+    r2 = ((y - c2[:, :, None]) ** 2).sum(-1).amax(2).sqrt()
+    D = ((c1[:, :, None] - c2[:, None]) ** 2).sum(-1).sqrt()
+    rsum = r1[:, :, None] + r2[:, None]
+    valid = torch.arange(P, device=x.device)[None] < n_parts[:, None]
+    pair_valid = valid[:, :, None] & valid[:, None, :]
+    inf = torch.tensor(float('inf'), device=x.device)
+    ub = torch.where(pair_valid, D + rsum, inf)
+    lb = (D - rsum - _PRUNE_SLACK * (D + rsum)).clamp_min(0.0)
+    lb = torch.where(pair_valid, lb, inf)
+    ub1, ub2 = ub.amin(2), ub.amin(1)
+    return pair_valid & ((lb <= ub1[:, :, None]) | (lb <= ub2[:, None, :]))
 
 
 def scatter_grad_plain(query, target, witness, grad, grad_query,
@@ -350,9 +458,8 @@ class _Chamfer(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, y, n_parts, diagonal, plain):
-        nn = nn_plain if plain else nn_cuda
-        d1, w1 = nn(x, y, n_parts, diagonal)
-        d2, w2 = nn(y, x, n_parts, diagonal)
+        nn = nn_pair_plain if plain else nn_pair_cuda
+        d1, d2, w1, w2 = nn(x, y, n_parts, diagonal)
         ctx.save_for_backward(x, y, w1, w2)
         ctx.diagonal, ctx.plain = diagonal, plain
         ctx.mark_non_differentiable(w1, w2)

@@ -49,8 +49,8 @@ def _build_dir():
 
 def _bind(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mpa_chamfer_nn.restype = i
-    lib.mpa_chamfer_nn.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.mpa_chamfer_pair.restype = i
+    lib.mpa_chamfer_pair.argtypes = [p] * 9 + [i, i, i, i, p]
     lib.mpa_chamfer_bwd.restype = i
     lib.mpa_chamfer_bwd.argtypes = [p, p, p, p, p, p, i, i, i, p]
     lib.mpa_nn_parts.restype = i

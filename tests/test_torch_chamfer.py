@@ -198,8 +198,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     """The CUDA launchers never fall back: a CPU tensor is refused."""
     x = torch.zeros((1, 2, 4, 3))
     n_parts = torch.tensor([2], dtype=torch.int32)
-    with pytest.raises(ValueError, match='CUDA'):
-        TC.nn_cuda(x, x, n_parts, False)
+    for diagonal in (False, True):
+        with pytest.raises(ValueError, match='CUDA'):
+            TC.nn_pair_cuda(x, x, n_parts, diagonal)
     w = torch.zeros((1, 2, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match='CUDA'):
         TC.scatter_grad_cuda(x, x, w, w.float(), x.clone(), x.clone(),

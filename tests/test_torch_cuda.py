@@ -7,9 +7,10 @@ imports no JAX, so it runs on a machine with only PyTorch:
 
 Tolerances: distances bit for bit and witnesses exactly (the kernel
 computes the plain version's expression with every operation rounded on
-its own); gradients within 1e-5 of the largest gradient, since the
-backward's atomicAdds (and index_add_ on the card) sum a witness's terms in
-a varying order.  The same holds for B7 and B8 and for the card against
+its own; B1/B3's pruned list equals its dense list exactly, and so does
+its keep rule the plain one's); gradients within 1e-5 of the largest
+gradient, since the backward's atomicAdds (and index_add_ on the card) sum
+a witness's terms in a varying order.  The same holds for B7 and B8 and for the card against
 the CPU.  The sampling kernels' points bit for bit and their face draws
 exactly, for the same reason.  Losses on the card within 1e-5 relative of
 the CPU's.
@@ -84,15 +85,16 @@ def test_card_matches_cpu(cuda, name):
 
 @pytest.mark.cuda
 def test_launch_counters(cuda):
-    """Each wrapper counts its own launches: one per direction.  The fused
-    route launches no B7 or B8."""
+    """Each wrapper counts its own launches: one main launch a forward call
+    (both directions), one backward launch per direction.  The fused route
+    launches no B7 or B8."""
     x, y, valids = _inputs(cuda)
     x.requires_grad_()
     TC.reset_launches()
     d1, d2 = TC.chamfer_parts(x, y, valids)
     (d1.sum() + d2.sum()).backward()
     TC.chamfer_diag(x.detach(), y, valids)
-    assert TC.LAUNCHES == {'nn_parts': 2, 'nn_diag': 2, 'bwd_parts': 2,
+    assert TC.LAUNCHES == {'nn_parts': 1, 'nn_diag': 1, 'bwd_parts': 2,
                            'bwd_diag': 0, 'nn_off': 0, 'nn_dir': 0}
 
 
@@ -133,11 +135,91 @@ def test_nn_parts_kernel_matches_plain(cuda, diagonal):
     plain = TC.nn_parts_plain(x, y, n_parts)
     for k, p in zip(kern, plain):
         assert torch.equal(k, p)
-    d_b1, w_b1 = TC.nn_cuda(x, y, n_parts, False)
+    d_b1, _, w_b1, _ = TC.nn_pair_cuda(x, y, n_parts, False)
     assert torch.equal(kern[0], d_b1)
     idx = kern[1].long()
     renumbered = torch.where(w_b1 >= 0, idx // 384 * N + idx % 384, -1)
     assert torch.equal(renumbered.to(torch.int32), w_b1)
+    # the other direction of the same call
+    _, d2_b1, _, w2_b1 = TC.nn_pair_cuda(x, y, n_parts, False)
+    d2_b8, i2_b8 = TC.nn_parts_cuda(y, x, n_parts)
+    assert torch.equal(d2_b8, d2_b1)
+    idx = i2_b8.long()
+    renumbered = torch.where(w2_b1 >= 0, idx // 384 * N + idx % 384, -1)
+    assert torch.equal(renumbered.to(torch.int32), w2_b1)
+
+
+def _pair_clouds(device, B, P, N, nparts, kind, seed=0):
+    """Part clouds for B1/B3: 'spread' parts (0.1-scale around centres in
+    [-2, 2]^3, so pruning drops pairs) or 'ties' (half the centres at 0,
+    coordinates on a 1/64 grid, duplicated points)."""
+    rng = np.random.RandomState(seed)
+    centres = rng.uniform(-2, 2, (B, P, 1, 3))
+    if kind == 'ties':
+        centres[:, ::2] = 0.0
+    x = centres + 0.1 * rng.randn(B, P, N, 3)
+    y = x + 0.02 * rng.randn(B, P, N, 3)
+    if kind == 'ties':
+        x, y = np.round(x * 64) / 64, np.round(y * 64) / 64
+        dup = np.arange(1, N, 4)
+        x[:, :, dup] = x[:, :, dup - 1]
+    n_parts = torch.tensor(nparts, dtype=torch.int32, device=device)
+    return (torch.tensor(x, dtype=torch.float32, device=device),
+            torch.tensor(y, dtype=torch.float32, device=device), n_parts)
+
+
+# (B, P, N, part counts, kind): N = 1300 is more than one 512-point target
+# stage and one 1024-point query chunk, and not a multiple of the 8-target
+# group
+PAIR_CASES = {
+    'ties': (2, 6, 200, (6, 3), 'ties'),
+    'one_part': (3, 1, 100, (1, 0, 1), 'spread'),
+    'none_and_all': (3, 5, 64, (0, 5, 2), 'spread'),
+    'one_point': (2, 4, 1, (4, 2), 'spread'),
+    'long_parts': (2, 3, 1300, (3, 2), 'ties'),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(PAIR_CASES))
+def test_pair_kernel_matches_plain(cuda, case):
+    """B1/B3 against the plain version bit for bit, witnesses included, on
+    the pruned and the dense list; the card's keep rule against the plain
+    one."""
+    B, P, N, nparts, kind = PAIR_CASES[case]
+    x, y, n_parts = _pair_clouds(cuda, B, P, N, nparts, kind)
+    work = torch.empty(1 + B * P * P, dtype=torch.int32, device=cuda)
+    for diagonal in (False, True):
+        plain = TC.nn_pair_plain(x, y, n_parts, diagonal)
+        for prune in (True, False):
+            kern = TC.nn_pair_cuda(x, y, n_parts, diagonal, prune=prune,
+                                   work=work)
+            for k, p in zip(kern, plain):
+                assert torch.equal(k, p), (diagonal, prune)
+    TC.nn_pair_cuda(x, y, n_parts, False, prune=True, work=work)
+    assert torch.equal(TC.work_keep(work, B, P),
+                       TC.prune_keep_plain(x, y, n_parts))
+
+
+@pytest.mark.cuda
+def test_work_list_dense_and_pruned(cuda):
+    """The whole-shape call visits every pair of valid parts by default
+    and the pairs of the keep rule with `prune`, which drops pairs of
+    spread-out parts; the diagonal call visits (i, i)."""
+    B, P = 3, 6
+    x, y, n_parts = _pair_clouds(cuda, B, P, 50, (6, 4, 1), 'spread')
+    valid = torch.arange(P, device=cuda)[None] < n_parts[:, None]
+    pairs = valid[:, :, None] & valid[:, None, :]
+    work = torch.empty(1 + B * P * P, dtype=torch.int32, device=cuda)
+    TC.nn_pair_cuda(x, y, n_parts, False, work=work)
+    assert torch.equal(TC.work_keep(work, B, P), pairs)
+    TC.nn_pair_cuda(x, y, n_parts, True, work=work)
+    assert torch.equal(TC.work_keep(work, B, P),
+                       pairs & torch.eye(P, dtype=torch.bool, device=cuda))
+    TC.nn_pair_cuda(x, y, n_parts, False, prune=True, work=work)
+    kept = TC.work_keep(work, B, P)
+    assert torch.equal(kept, TC.prune_keep_plain(x, y, n_parts))
+    assert int(kept.sum()) < int(pairs.sum())
 
 
 @pytest.mark.cuda
