@@ -10,14 +10,17 @@ Phases, each printing its own line(s); any failure exits non-zero:
      flagship shapes (B=32, P=20, N=1000), part counts drawn from the
      everyday mix: distances bit for bit, witnesses exactly, gradients
      within a stated tolerance.  B1/B3 (one kernel, both directions a
-     launch) also on [20] * 8, on tie-heavy clouds (a 1/64 grid with
-     duplicated points), on fully overlapping parts and on parts spread
-     over [-2, 2]^3; in the whole-shape mode the pruned part-pair list
+     launch) and B2/B4 (one kernel, both directions a launch, with dy and
+     dx only) also on [20] * 8, on tie-heavy clouds (a 1/64 grid with
+     duplicated points), on fully overlapping parts, on parts spread over
+     [-2, 2]^3 and on collapsed parts (the second cloud's parts shrunk to
+     4 points each); in the whole-shape mode the pruned part-pair list
      against the dense list (the main path's), bit for bit, and the card's
      keep rule against the plain one, which must drop pairs of the spread
-     parts; both lists timed on the everyday mix and on the spread parts,
-     with pairs a second, the share of the bound and each kernel's device
-     time behind one call (torch.profiler).  The unfused route's kernel
+     parts; both lists and both backward forms timed on the everyday mix,
+     the spread and the collapsed parts, with pairs a second, the share of
+     the bound and each kernel's device time behind one call
+     (torch.profiler).  The unfused route's kernel
      (B8) also in the B*P one-part diagonal form, and against B1 on the
      same clouds (witnesses renumbered), both timed; the reference API's
      kernel (B7) on one repulsion scan row (640 clouds, 1000 points against
@@ -87,8 +90,8 @@ TPU_DS = 'multi_part_assembly_tpu/datasets/device_sampler.py'
 KERNELS = [
     ('chamfer_pair[parts]', 'nn_parts', f'{TPU}:483', CHAMFER_CU),
     ('chamfer_pair[diag]', 'nn_diag', f'{TPU}:556', CHAMFER_CU),
-    ('chamfer_bwd[parts]', 'bwd_parts', f'{TPU}:632', CHAMFER_CU),
-    ('chamfer_bwd[diag]', 'bwd_diag', f'{TPU}:687', CHAMFER_CU),
+    ('chamfer_grad[parts]', 'bwd_parts', f'{TPU}:632', CHAMFER_CU),
+    ('chamfer_grad[diag]', 'bwd_diag', f'{TPU}:687', CHAMFER_CU),
     ('sample_dense', 'sample_dense', f'{TPU_DS}:212', SAMPLER_CU),
     ('sample_chunked', 'sample_chunked', f'{TPU_DS}:269', SAMPLER_CU),
     ('nn_parts[off]', 'nn_off', f'{TPU}:284', CHAMFER_CU),
@@ -97,10 +100,12 @@ KERNELS = [
 FUSED_KEYS = ('nn_parts', 'nn_diag', 'bwd_parts', 'bwd_diag')
 # face counts of the ragged soup set: sub-chunk, exactly one chunk, many
 RAGGED_FACES = [37, 512, 3000, 20000]
-# The backward's atomicAdds sum a witness's terms in a varying order, so
-# its gradients match the plain index_add_ only to float rounding:
-# |kernel - plain| <= GRAD_RTOL * max|plain| + GRAD_ATOL.
+# B2/B4's shared-memory atomicAdds sum a witness's terms in a varying
+# order, so their gradients match the plain index_add_ only to float
+# rounding: |kernel - plain| <= GRAD_RTOL * max|plain| + GRAD_ATOL.
 GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-6
+# B2/B4's two forms: (need_dy, label); the kernels line reports the first
+BWD_FORMS = ((True, 'with dy'), (False, 'dx only'))
 # Peaks of one H100 SXM at 700 W (NVIDIA's data sheet): FP32 operations
 # that cannot fuse into FMAs (half the 67 TFLOP/s figure, which counts an
 # FMA as two), and HBM3 bytes a second.  A nearest-neighbour pair costs
@@ -181,7 +186,9 @@ def _clouds(counts, seed, kind='everyday'):
     both on a 1/64 grid, with every fourth point duplicated, so that exact
     distance ties abound; 'overlap': every centre at 0, so that no part
     pair can be pruned; 'spread': centres in [-2, 2]^3, so that pruning
-    drops the pairs of distant parts."""
+    drops the pairs of distant parts; 'collapsed': every part of the second
+    cloud shrunk to its first 4 points, so that the witnesses of both
+    directions crowd onto a few points (the backward's worst contention)."""
     g = torch.Generator(device='cuda').manual_seed(seed)
     b = len(counts)
     centres = (torch.rand((b, P, 1, 3), generator=g, device='cuda') - 0.5) \
@@ -194,6 +201,8 @@ def _clouds(counts, seed, kind='everyday'):
         x, y = torch.round(x * 64) / 64, torch.round(y * 64) / 64
         x[:, :, 1::4] = x[:, :, 0::4]
         y[:, :, 2::4] = y[:, :, 1::4]
+    if kind == 'collapsed':
+        y = y[:, :, torch.arange(N, device='cuda') % 4]
     valids = (torch.arange(P, device='cuda')[None] <
               torch.as_tensor(counts, device='cuda')[:, None]).float()
     x = x * valids[:, :, None, None]
@@ -227,9 +236,10 @@ def _check_pair(counts, seed, diagonal, timed, kind='everyday'):
     """The B1/B3 kernel (the main path's dense list) against its plain
     version, bit for bit; in the whole-shape mode also the pruned list
     against the dense list and the card's keep rule against the plain one
-    (on 'spread' clouds it must drop pairs); then B2/B4 on the witnesses.
-    Returns (fwd, bwd) rows (err, ms, plain ms, bound ms, bound by), the
-    forward's for the dense list."""
+    (on 'spread' clouds it must drop pairs); then B2/B4 on the witnesses,
+    with dy and dx only, exact zeros at padded parts.  Returns (fwd, bwd)
+    rows (err, ms, plain ms, bound ms, bound by), the forward's for the
+    dense list, the backward's with dy."""
     x, y, valids = _clouds(counts, seed, kind)
     n_parts = valids.to(torch.int32).sum(1, dtype=torch.int32)
     b = len(counts)
@@ -272,28 +282,35 @@ def _check_pair(counts, seed, diagonal, timed, kind='everyday'):
             raise AssertionError('chamfer_pair[parts] spread: pruning '
                                  'dropped no part pair')
 
+    # cotangents over every point, padded parts included: their gradients
+    # must still be exactly 0
     g = torch.Generator(device='cuda').manual_seed(seed + 1)
     g1 = torch.rand(d1k.shape, generator=g, device='cuda')
     g2 = torch.rand(d2k.shape, generator=g, device='cuda')
+    pad = torch.arange(P, device='cuda')[None] >= n_parts[:, None]
 
-    def bwd(scatter):
-        dx, dy = torch.zeros_like(x), torch.zeros_like(y)
-        scatter(x, y, w1p, g1, dx, dy, diagonal=diagonal)
-        scatter(y, x, w2p, g2, dy, dx, diagonal=diagonal)
-        return dx, dy
+    def bwd(grad, need_dy):
+        return lambda: grad(x, y, n_parts, w1p, w2p, g1, g2, diagonal,
+                            need_dy)
 
-    dxk, dyk = bwd(C.scatter_grad_cuda)
-    dxp, dyp = bwd(C.scatter_grad_plain)
-    torch.cuda.synchronize()
-    bwd_err = max(float((dxk - dxp).abs().max()),
-                  float((dyk - dyp).abs().max()))
-    scale = max(float(dxp.abs().max()), float(dyp.abs().max()))
-    bwd_tol = GRAD_RTOL * scale + GRAD_ATOL
-    print(f'kernels: chamfer_bwd[{mode}] {tag}: max|grad kernel - grad '
-          f'plain| = {bwd_err:.3e} (tolerance {bwd_tol:.3e})', flush=True)
-    if not bwd_err <= bwd_tol:
-        raise AssertionError(f'chamfer_bwd[{mode}] disagrees with its '
-                             'plain version')
+    bwd_err = {}
+    for need_dy, form in BWD_FORMS:
+        kern_g = bwd(C.chamfer_grad_cuda, need_dy)()
+        plain_g = bwd(C.chamfer_grad_plain, need_dy)()
+        torch.cuda.synchronize()
+        outs = [(k, p) for k, p in zip(kern_g, plain_g) if p is not None]
+        err = bwd_err[need_dy] = max(float((k - p).abs().max())
+                                     for k, p in outs)
+        tol = GRAD_RTOL * max(float(p.abs().max()) for _, p in outs) + \
+            GRAD_ATOL
+        pad_nonzero = sum(int((k[pad] != 0).sum()) for k, _ in outs)
+        print(f'kernels: chamfer_grad[{mode}] {form} {tag}: max|grad kernel '
+              f'- grad plain| = {err:.3e} (tolerance {tol:.3e}), nonzero '
+              f'gradients at padded parts = {pad_nonzero}', flush=True)
+        if not err <= tol or pad_nonzero or \
+                (kern_g[1] is None) == need_dy:
+            raise AssertionError(f'chamfer_grad[{mode}] {form} {kind} '
+                                 'disagrees with its plain version')
     if not timed:
         return None
 
@@ -318,15 +335,27 @@ def _check_pair(counts, seed, diagonal, timed, kind='everyday'):
     p_ms = _cuda_ms(lambda: C.nn_pair_plain(x, y, n_parts, diagonal), 3)
     print(f'kernels: chamfer_pair[{mode}] plain {p_ms:.4f} ms', flush=True)
     valid_pts = sum(sizes) * N
-    bwd_bound = _bound(nbytes=64 * valid_pts + 8 * (b * P * N - valid_pts))
-    kb_ms = _cuda_ms(lambda: bwd(C.scatter_grad_cuda), 20)
-    pb_ms = _cuda_ms(lambda: bwd(C.scatter_grad_plain), 3)
-    print(f'kernels: chamfer_bwd[{mode}] both directions: kernel '
-          f'{kb_ms:.4f} ms, plain {pb_ms:.4f} ms, bound {bwd_bound[0]:.4f} '
-          f'ms (bytes), share {bwd_bound[0] / kb_ms:.3f}', flush=True)
+    bwd_rows = {}
+    for need_dy, form in BWD_FORMS:
+        # a valid point reads x, y (12 bytes each), w1, w2, g1, g2 (4 each)
+        # and writes dx (and dy); a padded point writes its zero dx (and dy)
+        point, padded = (64, 24) if need_dy else (52, 12)
+        bound = _bound(nbytes=point * valid_pts +
+                       padded * (b * P * N - valid_pts))
+        k_ms = _cuda_ms(bwd(C.chamfer_grad_cuda, need_dy), 50)
+        pl_ms = _cuda_ms(bwd(C.chamfer_grad_plain, need_dy), 3)
+        split = ', '.join(f'{name} {t:.4f} ms' for name, t in sorted(
+            _profile(bwd(C.chamfer_grad_cuda, need_dy), 20).items(),
+            key=lambda kv: -kv[1]))
+        print(f'kernels: chamfer_grad[{mode}] {kind} {form}: kernel '
+              f'{k_ms:.4f} ms, plain {pl_ms:.4f} ms, bound {bound[0]:.4f} ms '
+              f'({point} bytes a valid point, {padded} a padded one), share '
+              f'{bound[0] / k_ms:.3f}; device time by kernel: '
+              f'{split or "not recorded"}', flush=True)
+        bwd_rows[need_dy] = (bwd_err[need_dy], k_ms, pl_ms, *bound)
     return {'fwd': (fwd_err, times['dense'], p_ms,
                     *_pair_bound(dense_pairs, b)),
-            'bwd': (bwd_err, kb_ms, pb_ms, *bwd_bound)}
+            'bwd': bwd_rows[True]}
 
 
 def _check_nn_parts(counts, seed, timed):
@@ -478,9 +507,10 @@ def phase_kernels():
         for counts, seed, kind in (([20] * 8, 2, 'everyday'),
                                    (mix.tolist(), 3, 'ties'),
                                    (mix.tolist(), 4, 'overlap'),
-                                   (mix.tolist(), 5, 'spread')):
-            _check_pair(counts, seed, diagonal, timed=kind == 'spread',
-                        kind=kind)
+                                   (mix.tolist(), 5, 'spread'),
+                                   (mix.tolist(), 6, 'collapsed')):
+            _check_pair(counts, seed, diagonal,
+                        timed=kind in ('spread', 'collapsed'), kind=kind)
     results['nn_off'] = _check_nn_parts(mix.tolist(), 1, timed=True)
     _check_nn_parts([20] * 8, 2, timed=False)
     _time_routes(mix.tolist(), 1)

@@ -19,9 +19,11 @@ Two routes serve the part-structured functions, picked by
     (csrc/chamfer.cu, B1/B3) gives both directions from one main launch,
     and records the first-hit witness of every point as a flat index into
     the other cloud's [P*N] points (-1 at padded parts); the backward is
-    one launch of the witness-scatter kernel (`mpa_chamfer_bwd`, B2/B4) per
-    direction.  The whole-shape forward visits every pair of valid parts;
-    `nn_pair_cuda(..., prune=True)` visits only those that the JAX
+    one launch of `mpa_chamfer_grad` (B2/B4) for both directions, which
+    computes dy only when y needs a gradient and takes an unused
+    distance's cotangent as absent.  The whole-shape forward visits every
+    pair of valid parts; `nn_pair_cuda(..., prune=True)` visits only those
+    that the JAX
     package's exact triangle-inequality rule keeps (JAX :740-790), with
     bit-identical results.
   - 'off', the JAX unfused route: one launch of `mpa_nn_parts` (B8) per
@@ -32,14 +34,13 @@ Two routes serve the part-structured functions, picked by
 direction; their backward is plain PyTorch, as XLA's is in JAX.
 
 Beside the kernels sit their plain PyTorch versions (`nn_pair_plain` and
-`prune_keep_plain`, `scatter_grad_plain`, `nn_parts_plain`,
+`prune_keep_plain`, `chamfer_grad_plain`, `nn_parts_plain`,
 `nn_dir_plain`), computing the same distance expression in the same order.
 A CPU tensor takes the plain version of its route, since no kernel exists
 for the CPU; a CUDA tensor launches the kernel or raises.  `LAUNCHES`
 counts the kernel launches, one key per (kernel, mode).
 """
 
-import functools
 import os
 
 import torch
@@ -52,8 +53,8 @@ __all__ = ['chamfer_parts', 'chamfer_diag', 'chamfer_pairs',
            'chamfer_distance', 'nn_distance', 'chamfer_distance_ref',
            'set_fused_mode', 'fused_mode', 'nn_pair_cuda', 'work_keep',
            'nn_pair_plain', 'nn_plain', 'pack_keys', 'unpack_keys',
-           'prune_keep_plain', 'scatter_grad_cuda',
-           'scatter_grad_plain', 'nn_parts_cuda', 'nn_parts_plain',
+           'prune_keep_plain', 'chamfer_grad_cuda',
+           'chamfer_grad_plain', 'nn_parts_cuda', 'nn_parts_plain',
            'nn_dir_cuda', 'nn_dir_plain', 'LAUNCHES', 'reset_launches']
 
 LAUNCHES = {'nn_parts': 0, 'nn_diag': 0, 'bwd_parts': 0, 'bwd_diag': 0,
@@ -194,30 +195,49 @@ def work_keep(work, B, P):
     return keep.view(B, P, P)
 
 
-def scatter_grad_cuda(query, target, witness, grad, grad_query, grad_target,
-                      diagonal):
-    """Kernel: one direction's chamfer gradient from the forward's witnesses,
-    accumulated in place: grad_query += 2 g (q - t_w), grad_target[w] -= the
-    same (atomicAdd).
+def chamfer_grad_cuda(x, y, n_parts, w1, w2, g1, g2, diagonal, need_dy):
+    """Kernel B2/B4: the gradient of both directions of the part-structured
+    chamfer from the forward's witnesses, in one launch.
 
     Replaces `_fused_parts_bwd_kernel` (chamfer.py:632) and
-    `_fused_diag_bwd_kernel` (:687); the two modes run the same kernel
-    (diagonal witnesses already lie in their own part) and are counted
-    apart."""
-    B, P, N, _ = query.shape
-    for t, name in ((query, 'query'), (target, 'target'),
-                    (grad_query, 'grad_query'), (grad_target, 'grad_target')):
-        _require(t, name, torch.float32, (B, P, N, 3))
-    _require(witness, 'witness', torch.int32, (B, P, N))
-    _require(grad, 'grad', torch.float32, (B, P, N))
+    `_fused_diag_bwd_kernel` (:687), launched by `_fused_parts_bwd_pallas`
+    (:866).  Each block owns a chunk of one part's gradient rows and writes
+    them whole: the outputs come from `torch.empty`, with no zero-fill.
+
+    Args:
+        x, y: [B, P, N, 3] f32 CUDA, contiguous
+        n_parts: [B] int32 valid-prefix counts
+        w1, w2: [B, P, N] int32 witnesses of `nn_pair_cuda`
+        g1, g2: [B, P, N] f32 cotangents of dist1, dist2, or None (no
+            contribution; never materialised as zeros)
+        need_dy: whether to compute dy
+
+    Returns:
+        dx [B, P, N, 3] f32, and dy likewise or None when not `need_dy`;
+        exact zeros at padded parts
+    """
+    B, P, N, _ = x.shape
+    _require(x, 'x', torch.float32, (B, P, N, 3))
+    _require(y, 'y', torch.float32, (B, P, N, 3))
+    _require(n_parts, 'n_parts', torch.int32, (B, ))
+    _require(w1, 'w1', torch.int32, (B, P, N))
+    _require(w2, 'w2', torch.int32, (B, P, N))
+    for g, name in ((g1, 'g1'), (g2, 'g2')):
+        if g is not None:
+            _require(g, name, torch.float32, (B, P, N))
+    dx = torch.empty_like(x)
+    dy = torch.empty_like(y) if need_dy else None
     lib = load_library()
-    with torch.cuda.device(query.device):
-        rc = lib.mpa_chamfer_bwd(
-            query.data_ptr(), target.data_ptr(), witness.data_ptr(),
-            grad.data_ptr(), grad_query.data_ptr(), grad_target.data_ptr(),
-            B, P, N, torch.cuda.current_stream().cuda_stream)
-    _check_rc(rc, 'mpa_chamfer_bwd')
+    with torch.cuda.device(x.device):
+        rc = lib.mpa_chamfer_grad(
+            x.data_ptr(), y.data_ptr(), n_parts.data_ptr(), w1.data_ptr(),
+            w2.data_ptr(), None if g1 is None else g1.data_ptr(),
+            None if g2 is None else g2.data_ptr(), dx.data_ptr(),
+            None if dy is None else dy.data_ptr(), B, P, N,
+            2 if diagonal else 0, torch.cuda.current_stream().cuda_stream)
+    _check_rc(rc, 'mpa_chamfer_grad')
     LAUNCHES['bwd_diag' if diagonal else 'bwd_parts'] += 1
+    return dx, dy
 
 
 def nn_parts_cuda(x, y, n_parts):
@@ -399,10 +419,9 @@ def prune_keep_plain(x, y, n_parts):
     return pair_valid & ((lb <= ub1[:, :, None]) | (lb <= ub2[:, None, :]))
 
 
-def scatter_grad_plain(query, target, witness, grad, grad_query,
-                       grad_target, diagonal=False):
-    """Plain version of `scatter_grad_cuda` (gather + index_add_)."""
-    del diagonal  # same math in both modes
+def _grad_terms(query, target, witness, grad):
+    """One direction's terms 2 g (q - t_w) [B*P*N, 3] (0 at witness -1) and
+    the flat rows [B*P*N] of their witnesses in the target."""
     B, P, N, _ = query.shape
     w = witness.reshape(B, P * N).long()
     idx = w.clamp(min=0)
@@ -411,10 +430,29 @@ def scatter_grad_plain(query, target, witness, grad, grad_query,
     diff = (2.0 * grad.reshape(B, P * N, 1)) * \
         (query.reshape(B, P * N, 3) - t_w)
     diff = torch.where((w >= 0)[..., None], diff, torch.zeros_like(diff))
-    grad_query += diff.view_as(grad_query)
     flat = idx + torch.arange(B, device=idx.device)[:, None] * (P * N)
-    grad_target.view(B * P * N, 3).index_add_(0, flat.reshape(-1),
-                                              -diff.reshape(-1, 3))
+    return diff.reshape(-1, 3), flat.reshape(-1)
+
+
+def chamfer_grad_plain(x, y, n_parts, w1, w2, g1, g2, diagonal, need_dy):
+    """Plain version of `chamfer_grad_cuda`, same contract: gather +
+    index_add_, own terms first, then the witnesses' negated terms.  The
+    witnesses carry the part structure, so `n_parts` and `diagonal` change
+    nothing here."""
+    del n_parts, diagonal
+    dx = torch.zeros_like(x)
+    dy = torch.zeros_like(y) if need_dy else None
+    t1 = None if g1 is None else _grad_terms(x, y, w1, g1)
+    t2 = None if g2 is None else _grad_terms(y, x, w2, g2)
+    if t1 is not None:
+        dx.view(-1, 3).add_(t1[0])
+    if t2 is not None and need_dy:
+        dy.view(-1, 3).add_(t2[0])
+    if t2 is not None:
+        dx.view(-1, 3).index_add_(0, t2[1], -t2[0])
+    if t1 is not None and need_dy:
+        dy.view(-1, 3).index_add_(0, t1[1], -t1[0])
+    return dx, dy
 
 
 def nn_parts_plain(x, y, n_parts):
@@ -460,25 +498,22 @@ class _Chamfer(torch.autograd.Function):
     def forward(ctx, x, y, n_parts, diagonal, plain):
         nn = nn_pair_plain if plain else nn_pair_cuda
         d1, d2, w1, w2 = nn(x, y, n_parts, diagonal)
-        ctx.save_for_backward(x, y, w1, w2)
+        ctx.save_for_backward(x, y, n_parts, w1, w2)
         ctx.diagonal, ctx.plain = diagonal, plain
         ctx.mark_non_differentiable(w1, w2)
+        # an unused distance reaches the backward as None, not as zeros
+        ctx.set_materialize_grads(False)
         return d1, d2, w1, w2
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g1, g2, _gw1, _gw2):
-        x, y, w1, w2 = ctx.saved_tensors
-        g1 = torch.zeros_like(w1, dtype=x.dtype) if g1 is None \
-            else g1.contiguous()
-        g2 = torch.zeros_like(w2, dtype=x.dtype) if g2 is None \
-            else g2.contiguous()
-        scatter = scatter_grad_plain if ctx.plain else scatter_grad_cuda
-        scatter = functools.partial(scatter, diagonal=ctx.diagonal)
-        # the scatter accumulates, so the outputs start at zero
-        dx, dy = torch.zeros_like(x), torch.zeros_like(y)
-        scatter(x, y, w1, g1, dx, dy)
-        scatter(y, x, w2, g2, dy, dx)
+        x, y, n_parts, w1, w2 = ctx.saved_tensors
+        grad = chamfer_grad_plain if ctx.plain else chamfer_grad_cuda
+        dx, dy = grad(x, y, n_parts, w1, w2,
+                      None if g1 is None else g1.contiguous(),
+                      None if g2 is None else g2.contiguous(),
+                      ctx.diagonal, ctx.needs_input_grad[1])
         return dx, dy, None, None, None
 
 

@@ -51,8 +51,8 @@ def _bind(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mpa_chamfer_pair.restype = i
     lib.mpa_chamfer_pair.argtypes = [p] * 9 + [i, i, i, i, p]
-    lib.mpa_chamfer_bwd.restype = i
-    lib.mpa_chamfer_bwd.argtypes = [p, p, p, p, p, p, i, i, i, p]
+    lib.mpa_chamfer_grad.restype = i
+    lib.mpa_chamfer_grad.argtypes = [p] * 9 + [i, i, i, i, p]
     lib.mpa_nn_parts.restype = i
     lib.mpa_nn_parts.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.mpa_nn_dir.restype = i

@@ -109,6 +109,94 @@ def test_distances_and_grads_match_jax(fused_mode, case, name):
     assert all(v == 0 for v in TC.LAUNCHES.values())
 
 
+# backward variants of the fused route: (weight d1, weight d2, y needs a
+# gradient, every y part collapsed to one point)
+GRAD_VARIANTS = {
+    'no_dy': (True, True, False, False),
+    'g1_none': (False, True, True, False),
+    'g2_none': (True, False, True, False),
+    'collapsed': (True, True, True, True),
+}
+
+
+@pytest.mark.parametrize('variant', sorted(GRAD_VARIANTS))
+@pytest.mark.parametrize('name', ['chamfer_parts', 'chamfer_diag'])
+@pytest.mark.parametrize('jax_mode', ['force', 'off'])
+def test_grad_variants_match_jax(monkeypatch, jax_mode, name, variant):
+    """The fused route's backward (B2/B4's plain version on the CPU)
+    against the JAX package: without dy, with an unused distance (whose
+    cotangent reaches the backward as None, and counts as zeros in JAX),
+    and with every y part collapsed to one point, so that one witness takes
+    a whole part's weight.  The cotangents are nonzero at padded parts, whose
+    gradients must still be exactly 0."""
+    use1, use2, need_dy, collapse = GRAD_VARIANTS[variant]
+    x, y, valids, w1, w2 = _inputs('mixed')
+    if collapse:
+        y = np.ascontiguousarray(np.broadcast_to(y[:, :, :1], y.shape))
+    w1, w2 = w1 * use1, w2 * use2
+    JC.set_fused_mode(jax_mode)
+    try:
+        ref = _jax(jax_mode, name, x, y, valids, w1, w2)
+    finally:
+        JC.set_fused_mode('auto')
+
+    calls = []
+    plain = TC.chamfer_grad_plain
+
+    def spy(*args):
+        calls.append(args)
+        return plain(*args)
+
+    monkeypatch.setattr(TC, 'chamfer_grad_plain', spy)
+    xt = torch.tensor(x, requires_grad=True)
+    yt = torch.tensor(y, requires_grad=need_dy)
+    d1, d2 = getattr(TC, name)(xt, yt, torch.tensor(valids))
+    loss = 0.0
+    if use1:
+        loss = loss + (d1 * torch.tensor(w1).reshape(d1.shape)).sum()
+    if use2:
+        loss = loss + (d2 * torch.tensor(w2).reshape(d2.shape)).sum()
+    loss.backward()
+
+    (*_, g1, g2, diagonal, need) = calls[0]
+    assert len(calls) == 1 and diagonal == (name == 'chamfer_diag')
+    assert (g1 is None) != use1 and (g2 is None) != use2
+    assert need == need_dy and (yt.grad is None) != need_dy
+    for r, o in zip(ref[:2], (d1, d2)):
+        np.testing.assert_allclose(o.detach().numpy(), r, atol=1e-5, rtol=0)
+    grads = [xt.grad] + ([yt.grad] if need_dy else [])
+    pad = torch.tensor(valids) == 0
+    for r, o in zip(ref[2:], grads):
+        np.testing.assert_allclose(o.numpy(), r, atol=1e-4, rtol=1e-4)
+        assert (o[pad] == 0).all()
+
+
+@pytest.mark.parametrize('diagonal', [False, True])
+def test_plain_grad_contract(diagonal):
+    """`chamfer_grad_plain`: no dy unless asked for, and the same dx either
+    way; a None cotangent equals a zero one; exact zeros at padded parts
+    whatever their cotangents."""
+    x, y, valids, w1, w2 = (torch.tensor(v) for v in _inputs('mixed'))
+    n_parts = valids.sum(1).to(torch.int32)
+    _, _, i1, i2 = TC.nn_pair_plain(x, y, n_parts, diagonal)
+    args = (x, y, n_parts, i1, i2)
+    dx, dy = TC.chamfer_grad_plain(*args, w1, w2, diagonal, True)
+    dx_only, none = TC.chamfer_grad_plain(*args, w1, w2, diagonal, False)
+    assert none is None and torch.equal(dx_only, dx)
+    zero = torch.zeros_like(w1)
+    for g1, g2 in ((None, w2), (w1, None), (None, None)):
+        got = TC.chamfer_grad_plain(*args, g1, g2, diagonal, True)
+        want = TC.chamfer_grad_plain(*args, zero if g1 is None else g1,
+                                     zero if g2 is None else g2, diagonal,
+                                     True)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    pad = valids == 0
+    assert (w1[pad] != 0).all()
+    assert (dx[pad] == 0).all() and (dy[pad] == 0).all()
+    assert dx[~pad].abs().sum() > 0 and dy[~pad].abs().sum() > 0
+
+
 def test_chamfer_pairs_matches_jax(fused_mode):
     """Each pair a one-part shape; invalid pairs give 0 and no gradient."""
     x, y, _, w1, w2 = _inputs('multigroup_6_10')
@@ -202,9 +290,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         with pytest.raises(ValueError, match='CUDA'):
             TC.nn_pair_cuda(x, x, n_parts, diagonal)
     w = torch.zeros((1, 2, 4), dtype=torch.int32)
-    with pytest.raises(ValueError, match='CUDA'):
-        TC.scatter_grad_cuda(x, x, w, w.float(), x.clone(), x.clone(),
-                             diagonal=False)
+    for diagonal in (False, True):
+        with pytest.raises(ValueError, match='CUDA'):
+            TC.chamfer_grad_cuda(x, x, n_parts, w, w, w.float(), None,
+                                 diagonal, need_dy=True)
 
 
 def test_unsupported_device_raises():

@@ -9,10 +9,11 @@ Tolerances: distances bit for bit and witnesses exactly (the kernel
 computes the plain version's expression with every operation rounded on
 its own; B1/B3's pruned list equals its dense list exactly, and so does
 its keep rule the plain one's); gradients within 1e-5 of the largest
-gradient, since the backward's atomicAdds (and index_add_ on the card) sum
-a witness's terms in a varying order.  The same holds for B7 and B8 and for the card against
-the CPU.  The sampling kernels' points bit for bit and their face draws
-exactly, for the same reason.  Losses on the card within 1e-5 relative of
+gradient (plus 1e-6), since B2/B4 sum the terms that share a witness by
+shared-memory atomicAdds, and index_add_ on the card by global ones, each
+in a varying order; padded parts' gradients exactly 0.  The same holds for
+B7 and B8 and for the card against the CPU.  The sampling kernels' points
+bit for bit and their face draws exactly, for the same reason.  Losses on the card within 1e-5 relative of
 the CPU's.
 """
 
@@ -84,17 +85,43 @@ def test_card_matches_cpu(cuda, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('name', ['chamfer_parts', 'chamfer_diag'])
+def test_card_grads_match_cpu(cuda, name):
+    """Gradients through the kernels (B1-B4) against the CPU's plain
+    version: with dy, without it, and with an unused distance."""
+    fn = getattr(TC, name)
+    w = torch.rand((2, 10, 40), generator=torch.Generator().manual_seed(0))
+    for need_dy, use2 in ((True, True), (False, True), (True, False)):
+        out = {}
+        for device in ('cpu', cuda):
+            x, y, valids = _inputs(device)
+            x.requires_grad_()
+            y.requires_grad_(need_dy)
+            d1, d2 = fn(x, y, valids)
+            loss = (d1 * w.to(device).reshape(d1.shape)).sum()
+            if use2:
+                loss = loss + d2.sum()
+            loss.backward()
+            out[str(device)] = [x.grad.cpu()] + (
+                [y.grad.cpu()] if need_dy else [])
+            assert need_dy or y.grad is None
+        for k, c in zip(out['cuda'], out['cpu']):
+            torch.testing.assert_close(
+                k, c, atol=1e-5 * float(c.abs().max()) + 1e-6, rtol=0)
+
+
+@pytest.mark.cuda
 def test_launch_counters(cuda):
     """Each wrapper counts its own launches: one main launch a forward call
-    (both directions), one backward launch per direction.  The fused route
-    launches no B7 or B8."""
+    (both directions), one backward launch a call (both directions).  The
+    fused route launches no B7 or B8."""
     x, y, valids = _inputs(cuda)
     x.requires_grad_()
     TC.reset_launches()
     d1, d2 = TC.chamfer_parts(x, y, valids)
     (d1.sum() + d2.sum()).backward()
     TC.chamfer_diag(x.detach(), y, valids)
-    assert TC.LAUNCHES == {'nn_parts': 1, 'nn_diag': 1, 'bwd_parts': 2,
+    assert TC.LAUNCHES == {'nn_parts': 1, 'nn_diag': 1, 'bwd_parts': 1,
                            'bwd_diag': 0, 'nn_off': 0, 'nn_dir': 0}
 
 
@@ -150,9 +177,11 @@ def test_nn_parts_kernel_matches_plain(cuda, diagonal):
 
 
 def _pair_clouds(device, B, P, N, nparts, kind, seed=0):
-    """Part clouds for B1/B3: 'spread' parts (0.1-scale around centres in
-    [-2, 2]^3, so pruning drops pairs) or 'ties' (half the centres at 0,
-    coordinates on a 1/64 grid, duplicated points)."""
+    """Part clouds for B1-B4: 'spread' parts (0.1-scale around centres in
+    [-2, 2]^3, so pruning drops pairs), 'ties' (half the centres at 0,
+    coordinates on a 1/64 grid, duplicated points) or 'collapsed' (spread,
+    with every y part shrunk to its first 4 points, so that witnesses
+    crowd onto a few points in both directions)."""
     rng = np.random.RandomState(seed)
     centres = rng.uniform(-2, 2, (B, P, 1, 3))
     if kind == 'ties':
@@ -163,20 +192,23 @@ def _pair_clouds(device, B, P, N, nparts, kind, seed=0):
         x, y = np.round(x * 64) / 64, np.round(y * 64) / 64
         dup = np.arange(1, N, 4)
         x[:, :, dup] = x[:, :, dup - 1]
+    if kind == 'collapsed':
+        y = np.ascontiguousarray(y[:, :, np.arange(N) % 4])
     n_parts = torch.tensor(nparts, dtype=torch.int32, device=device)
     return (torch.tensor(x, dtype=torch.float32, device=device),
             torch.tensor(y, dtype=torch.float32, device=device), n_parts)
 
 
 # (B, P, N, part counts, kind): N = 1300 is more than one 512-point target
-# stage and one 1024-point query chunk, and not a multiple of the 8-target
-# group
+# stage and one 1024-point query chunk, not a multiple of the 8-target
+# group, and two chunks of B2/B4's owned points
 PAIR_CASES = {
     'ties': (2, 6, 200, (6, 3), 'ties'),
     'one_part': (3, 1, 100, (1, 0, 1), 'spread'),
     'none_and_all': (3, 5, 64, (0, 5, 2), 'spread'),
     'one_point': (2, 4, 1, (4, 2), 'spread'),
     'long_parts': (2, 3, 1300, (3, 2), 'ties'),
+    'collapsed': (3, 6, 300, (6, 4, 1), 'collapsed'),
 }
 
 
@@ -199,6 +231,35 @@ def test_pair_kernel_matches_plain(cuda, case):
     TC.nn_pair_cuda(x, y, n_parts, False, prune=True, work=work)
     assert torch.equal(TC.work_keep(work, B, P),
                        TC.prune_keep_plain(x, y, n_parts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(PAIR_CASES))
+def test_grad_kernel_matches_plain(cuda, case):
+    """B2/B4 against `chamfer_grad_plain` in both modes, with and without
+    dy, with either cotangent null, within 1e-5 of the largest gradient
+    (plus 1e-6); exact zeros at padded parts, whose cotangents are not 0."""
+    B, P, N, nparts, kind = PAIR_CASES[case]
+    x, y, n_parts = _pair_clouds(cuda, B, P, N, nparts, kind)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    g1 = torch.rand((B, P, N), generator=g, device=cuda) + 0.5
+    g2 = torch.rand((B, P, N), generator=g, device=cuda) + 0.5
+    pad = torch.arange(P, device=cuda)[None] >= n_parts[:, None]
+    for diagonal in (False, True):
+        _, _, w1, w2 = TC.nn_pair_cuda(x, y, n_parts, diagonal)
+        for c1, c2 in ((g1, g2), (None, g2), (g1, None)):
+            for need_dy in (True, False):
+                args = (x, y, n_parts, w1, w2, c1, c2, diagonal, need_dy)
+                kern = TC.chamfer_grad_cuda(*args)
+                plain = TC.chamfer_grad_plain(*args)
+                torch.cuda.synchronize()
+                assert (kern[1] is None) != need_dy
+                for k, p in zip(kern, plain):
+                    if p is None:
+                        continue
+                    tol = 1e-5 * float(p.abs().max()) + 1e-6
+                    torch.testing.assert_close(k, p, atol=tol, rtol=0)
+                    assert (k[pad] == 0).all()
 
 
 @pytest.mark.cuda
