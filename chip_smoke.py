@@ -25,10 +25,12 @@ Phases, each printing its own line(s); any failure exits non-zero:
      same clouds (witnesses renumbered), both timed; the reference API's
      kernel (B7) on one repulsion scan row (640 clouds, 1000 points against
      1000) and on 32 clouds of 1000 against 2500 points.  Then both
-     sampling kernels (dense, chunked) against their plain versions on the
-     synthetic everyday set's tables and on a ragged set of triangle soups,
-     at an everyday batch's row count and at the dense bound K = B*P:
-     points bit for bit, face draws exactly, and dense equal to chunked.
+     sampling kernels (dense, and chunked on the table's face-major
+     records, whose bytes and build time are printed) against their plain
+     versions on the synthetic everyday set's tables and on a ragged set of
+     triangle soups, at an everyday batch's row count and at the dense
+     bound K = B*P: points bit for bit, face draws exactly, and dense equal
+     to chunked.
      Kernel and plain times from CUDA events, each beside its bound (the
      larger of its operations over the card's peak and its bytes over the
      memory rate);
@@ -108,10 +110,13 @@ GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-6
 BWD_FORMS = ((True, 'with dy'), (False, 'dx only'))
 # Peaks of one H100 SXM at 700 W (NVIDIA's data sheet): FP32 operations
 # that cannot fuse into FMAs (half the 67 TFLOP/s figure, which counts an
-# FMA as two), and HBM3 bytes a second.  A nearest-neighbour pair costs
-# PAIR_OPS of them: three subtractions, three products, two additions and
-# one minimum for each direction, the pair counted once.
-PEAK_OPS, PEAK_BYTES, PAIR_OPS = 33.5e12, 3.35e12, 10
+# FMA as two), and HBM3 bytes a second.  A nearest-neighbour pair of B1/B3,
+# which serve both directions from one distance, costs PAIR_OPS of them:
+# three subtractions, three products, two additions and one minimum for
+# each direction, the pair counted once.  B7 and B8 serve one direction a
+# launch, and a chamfer launches them twice: each launch computes every
+# pair's distance and one minimum, DIR_OPS operations a pair and a launch.
+PEAK_OPS, PEAK_BYTES, PAIR_OPS, DIR_OPS = 33.5e12, 3.35e12, 10, 9
 
 
 def phase_device():
@@ -178,6 +183,15 @@ def _pair_bound(pairs, b):
     both directions, each pair counted once (PAIR_OPS operations); bytes:
     both clouds read, two distances and two witnesses written a point."""
     return _bound(PAIR_OPS * pairs, b * P * N * (2 * 12 + 4 * 4) + 4 * b)
+
+
+def _dir_bound(pairs, points):
+    """Bound of the two launches of a one-direction nearest neighbour (B7,
+    B8), each over `pairs` point pairs: DIR_OPS operations a pair and a
+    launch; bytes: each launch reads both clouds (`points` points in all,
+    12 bytes each) and writes a distance and an index (8 bytes) for each
+    of its queries, which are one cloud's points."""
+    return _bound(2 * DIR_OPS * pairs, 2 * 12 * points + 8 * points)
 
 
 def _clouds(counts, seed, kind='everyday'):
@@ -362,9 +376,9 @@ def _check_nn_parts(counts, seed, timed):
     """B8 against its plain version and against B1 on the same clouds, in
     the whole-shape form and the B*P one-part diagonal form; returns (err,
     kernel ms, plain ms, bound ms, bound by) of the whole-shape form, both
-    directions.  B8 still runs the one-direction scan that B1 ran before
-    its redesign, so the two times side by side are the before and after
-    on one card."""
+    directions (two launches).  B8 is B1's machinery in one direction, so
+    the two times side by side show what the second direction a launch
+    saves."""
     x, y, valids = _clouds(counts, seed)
     b = len(counts)
     npad = (N + 127) // 128 * 128
@@ -402,13 +416,14 @@ def _check_nn_parts(counts, seed, timed):
                      float((d2k - d2f).abs().max()))
         b1_mismatches = int((renumber(i1k) != w1f).sum() +
                             (renumber(i2k) != w2f).sum())
-        pad_nonzero = int((i1k[~valid] != 0).sum() + (i2k[~valid] != 0).sum())
+        pad_nonzero = int((i1k[~valid] != 0).sum() + (i2k[~valid] != 0).sum()
+                          + (d1k[~valid] != 0).sum() + (d2k[~valid] != 0).sum())
         print(f'kernels: nn_parts[off] {form} {tag}: max|d kernel - d plain| '
               f'= {err:.3e} (bitwise required), index mismatches = '
               f'{mismatches}; against chamfer_pair[parts]: max|d| = '
               f'{b1_err:.3e}, witness mismatches after renumbering = '
-              f'{b1_mismatches}, nonzero indices at padded parts = '
-              f'{pad_nonzero}', flush=True)
+              f'{b1_mismatches}, nonzero distances or indices at padded '
+              f'parts = {pad_nonzero}', flush=True)
         if err != 0.0 or mismatches or b1_err != 0.0 or b1_mismatches or \
                 pad_nonzero:
             raise AssertionError(f'nn_parts[off] {form} disagrees with its '
@@ -416,17 +431,28 @@ def _check_nn_parts(counts, seed, timed):
         if not timed:
             continue
         k_ms = _cuda_ms(lambda: fwd(C.nn_parts_cuda), 20)
+        k1_ms = _cuda_ms(lambda: C.nn_parts_cuda(q, t, n_p), 20)
         p_ms = _cuda_ms(lambda: fwd(C.nn_parts_plain), 3)
         f_ms = _cuda_ms(lambda: fused(True), 20)
         fd_ms = _cuda_ms(fused, 20)
-        print(f'kernels: nn_parts[off] {form} both directions: kernel '
-              f'{k_ms:.4f} ms, plain {p_ms:.4f} ms; chamfer_pair[parts] on '
-              f'the same clouds {f_ms:.4f} ms (pruned list), {fd_ms:.4f} ms '
-              f'(dense list): {k_ms / fd_ms:.2f}x faster at equal work',
-              flush=True)
+        # the same part pairs in both forms: every pair of valid parts of a
+        # shape, or each valid part against itself
+        sizes = [min(int(c), P) for c in counts]
+        pairs = sum((s * s if form == 'whole' else s) for s in sizes) * N * N
+        bound = _dir_bound(pairs, 2 * q.shape[0] * q.shape[1] * N)
+        split = ', '.join(f'{name} {t_:.4f} ms' for name, t_ in sorted(
+            _profile(lambda: C.nn_parts_cuda(q, t, n_p), 20).items(),
+            key=lambda kv: -kv[1]))
+        print(f'kernels: nn_parts[off] {form} both directions (two '
+              f'launches): kernel {k_ms:.4f} ms (one direction {k1_ms:.4f} '
+              f'ms), plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms '
+              f'({DIR_OPS} operations a pair and a launch, {pairs:.4e} '
+              f'pairs a launch), share {bound[0] / k_ms:.3f}; '
+              f'chamfer_pair[parts] on the same clouds {f_ms:.4f} ms (pruned '
+              f'list), {fd_ms:.4f} ms (dense list); device time of one '
+              f'direction by kernel: {split or "not recorded"}', flush=True)
         if form == 'whole':
-            pairs = sum(min(int(c), P) ** 2 for c in counts) * N * N
-            result = (err, k_ms, p_ms, *_pair_bound(pairs, b))
+            result = (err, k_ms, p_ms, *bound)
     return result
 
 
@@ -482,15 +508,15 @@ def _check_nn_dir(x, y, label, timed):
     k_ms = _cuda_ms(lambda: fwd(C.nn_dir_cuda), 20)
     k1_ms = _cuda_ms(lambda: C.nn_dir_cuda(x, y), 20)
     p_ms = _cuda_ms(lambda: fwd(C.nn_dir_plain), 3)
-    pairs = 2 * x.shape[0] * x.shape[1] * y.shape[1]
-    # one chamfer: each pair counted once, both directions
-    bound = _bound(PAIR_OPS * pairs / 2,
-                   x.numel() * 4 + y.numel() * 4 +
-                   8 * (x.shape[0] * x.shape[1] + y.shape[0] * y.shape[1]))
-    print(f'kernels: nn_dir {label} both directions: kernel {k_ms:.4f} ms '
-          f'(one direction {k1_ms:.4f} ms; {pairs / (k_ms / 1e3):.3e} '
-          f'pair distances/s), plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms '
-          f'({bound[1]}), share {bound[0] / k_ms:.3f}', flush=True)
+    pairs = x.shape[0] * x.shape[1] * y.shape[1]  # a launch's
+    bound = _dir_bound(pairs, x.shape[0] * x.shape[1] +
+                       y.shape[0] * y.shape[1])
+    print(f'kernels: nn_dir {label} both directions (two launches): kernel '
+          f'{k_ms:.4f} ms (one direction {k1_ms:.4f} ms; '
+          f'{2 * pairs / (k_ms / 1e3):.3e} pair distances/s), plain '
+          f'{p_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}, {DIR_OPS} '
+          f'operations a pair and a launch), share {bound[0] / k_ms:.3f}',
+          flush=True)
     return (err, k_ms, p_ms, *bound)
 
 
@@ -542,26 +568,45 @@ def _write_soups(folder):
     return paths
 
 
+def _sampler_fns(layout, t):
+    """(kernel, plain version) of a layout, each a function of (slots, u)
+    on the inputs the kernel takes: the dense table, or the chunked
+    table's face-major records."""
+    if layout == 'chunked':
+        return (lambda s, u: DS.sample_chunked_cuda(t.records, t.n_faces,
+                                                    s, u),
+                lambda s, u: DS.sample_records_plain(t.records, t.n_faces,
+                                                     s, u))
+    return (lambda s, u: DS.sample_dense_cuda(t.table, t.n_faces, s, u),
+            lambda s, u: DS.sample_dense_plain(t.table, t.n_faces, s, u))
+
+
 def _check_sampler(name, tables, slots, seed):
     """Both sampling kernels against their plain versions on one slot
-    array, and dense against chunked, then their times; returns
-    {layout: (err, kernel ms, plain ms)}."""
+    array (the chunked kernel also against the plain version on the table
+    itself), and dense against chunked, then their times; returns
+    {layout: (err, kernel ms, plain ms, bound ms, bound by)}."""
     g = torch.Generator(device='cuda').manual_seed(seed)
     u = torch.rand((slots.shape[0], 3, N), generator=g, device='cuda')
     out, tag = {}, f'{name} K={slots.shape[0]} N={N}'
     for layout, t in tables.items():
         pk, dk = DS._sample_points(t.table, t.n_faces, slots, u,
-                                   return_draws=True)
-        pp, dp = DS.sample_packed_ref(t.table, t.n_faces, slots, u,
-                                      return_draws=True)
+                                   return_draws=True, records=t.records)
+        plains = [DS.sample_packed_ref(t.table, t.n_faces, slots, u,
+                                       return_draws=True)]
+        if layout == 'chunked':
+            plains.append(DS.sample_records_plain(t.records, t.n_faces, slots,
+                                                  u, return_draws=True))
         torch.cuda.synchronize()
-        err = float((pk - pp).abs().max())
-        mismatches = int((dk != dp).sum())
+        err = max(float((pk - pp).abs().max()) for pp, _ in plains)
+        mismatches = sum(int((dk != dp).sum()) for _, dp in plains)
         finite = bool(torch.isfinite(pk).all())
         out[layout] = [err, pk, dk]
         print(f'kernels: sample_{layout} {tag}: max|p kernel - p plain| = '
               f'{err:.3e} (bitwise required), draw mismatches = '
-              f'{mismatches}', flush=True)
+              f'{mismatches}' + (' (plain versions on the table and on the '
+                                 'records)' if len(plains) > 1 else ''),
+              flush=True)
         if err != 0.0 or mismatches != 0 or not finite:
             raise AssertionError(f'sample_{layout} disagrees with its plain '
                                  f'version on {tag}')
@@ -580,16 +625,14 @@ def _check_sampler(name, tables, slots, seed):
         raise AssertionError(f'dense and chunked kernels disagree on {tag}')
     result = {}
     for layout, t in tables.items():
-        kern = DS.sample_chunked_cuda if layout == 'chunked' \
-            else DS.sample_dense_cuda
-        plain = DS.sample_chunked_plain if layout == 'chunked' \
-            else DS.sample_dense_plain
-        k_ms = _cuda_ms(lambda: kern(t.table, t.n_faces, slots, u), 100)
-        p_ms = _cuda_ms(lambda: plain(t.table, t.n_faces, slots, u), 20)
-        k_call = _call_ms(lambda: kern(t.table, t.n_faces, slots, u), 100)
+        kern, plain = _sampler_fns(layout, t)
+        k_ms = _cuda_ms(lambda: kern(slots, u), 100)
+        p_ms = _cuda_ms(lambda: plain(slots, u), 20)
+        k_call = _call_ms(lambda: kern(slots, u), 100)
         # a point reads its three uniforms, its triangle's nine floats and
         # (dense) its acceptance and alias or (chunked) its acceptance, and
-        # writes three floats
+        # writes three floats: what the function needs, not the 96-byte
+        # record the chunked kernel reads
         point_bytes = 12 + 36 + (8 if layout == 'dense' else 4) + 12
         bound = _bound(nbytes=point_bytes * slots.shape[0] * N)
         print(f'kernels: sample_{layout} {tag}: kernel {k_ms:.4f} ms on the '
@@ -620,7 +663,13 @@ def phase_sampler(data_dir, tmp):
                                                     layout=layout)
             torch.cuda.synchronize()
             print(f'kernels: {name} {layout} tables of {len(paths)} pieces '
-                  f'built in {time.perf_counter() - t0:.2f} s', flush=True)
+                  f'built in {time.perf_counter() - t0:.2f} s, '
+                  f'{tables[layout].nbytes} bytes in all', flush=True)
+        chunked = tables['chunked']
+        ms = _cuda_ms(lambda: DS.chunk_records(chunked.table), 5)
+        print(f'kernels: {name} chunked records (face-major copy, part of '
+              f'the build above): {chunked.records.numel() * 4} bytes, '
+              f'{ms:.4f} ms on the device to make from the table', flush=True)
         if name == 'everyday':  # the slots of one real batch
             ds._device_tables = tables['dense']
             order = rng.permutation(len(ds))[:B].tolist()

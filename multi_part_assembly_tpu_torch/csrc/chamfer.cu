@@ -10,8 +10,10 @@
 //                       _fused_diag_bwd_kernel (:687, B4), both launched by
 //                       _fused_parts_bwd_pallas (:866); both directions in
 //                       one launch
-//   mpa_nn_parts     <- _nn_parts_kernel (:284), the unfused route's
-//                       part-structured nearest neighbour, one direction
+//   mpa_nn_parts     <- _nn_parts_kernel (:284), launched by
+//                       _nn_parts_pallas (:330): the unfused route's
+//                       part-structured nearest neighbour, one direction a
+//                       launch (B8)
 //   mpa_nn_dir       <- _nn_kernel (:110), the nearest neighbour of
 //                       [B, N1, 3] in [B, N2, 3] behind chamfer_distance
 //
@@ -19,8 +21,9 @@
 // prefix of the part axis (n_parts[b] of them).  mpa_chamfer_pair's
 // witnesses are flat indices into the other cloud viewed as [P * N] (-1 at
 // padded parts); mpa_nn_parts writes the JAX numbering part * Npad + local
-// (0 at padded parts), which the unfused backward consumes.  B7 and B8
-// share one device-side scan (scan_targets).
+// (0 at padded parts), which the unfused backward consumes.  B8 is B1's
+// machinery in one direction (chamfer_pair_kernel<1>); B7 alone keeps
+// the thread-per-query scan (scan_targets).
 //
 // What bounds them on the card, and what the design does about it:
 //   - B1/B3 are bound by FP32 issue.  A pair costs 8 operations that cannot
@@ -47,8 +50,19 @@
 //     witnesses at near-ties.  The TPU's
 //     MXU devices (K=48 bf16 split packing, y-part grouping; B7's HIGHEST
 //     matmul and B8's K=8 augmented matmul) have no counterpart here.
-//   - B7/B8 (scan_targets) give each thread one query point and scan
-//     shared-memory tiles of targets, one direction per launch.
+//   - B8 is bound by FP32 issue too, but its contract, kept from the JAX
+//     package, is one direction a launch, and the unfused route calls it
+//     twice: every pair distance is computed once a launch, 9 operations
+//     (the distance's 8 and one minimum).  The design is B1's with the
+//     column direction compiled out (chamfer_pair_kernel<1>: no
+//     column keys, no reduce-scatter, no second key array, no column
+//     minimum a pair), the dense work list of chamfer_prep_kernel, and an
+//     unpack (nn_unpack_kernel) that resolves each group key to its first
+//     hit and writes the JAX numbering.  Padded parts and the padded
+//     one-part shapes of the diagonal form get no units.
+//   - B7 (scan_targets) gives each thread one query point and scans
+//     shared-memory tiles of targets, one direction a launch.  It reaches
+//     half its bound and was left as it is.
 //   - B2/B4 are bound by bytes: each valid point's coordinates, witnesses
 //     and cotangents read once and its gradients written once, and the
 //     zero gradient of every padded point written once.  The design: the
@@ -109,9 +123,9 @@ __device__ __forceinline__ float sqdist(float ax, float ay, float az,
 
 // Walks target points [t_begin, t_end) of `tgt` ([*, 3] f32) in ascending
 // order through the shared-memory tile and keeps each thread's first strict
-// minimum in best / best_w.  Every thread of the block calls it (it holds
-// barriers); `active` is false for the threads past the query axis' ragged
-// edge, which help load the tiles and compare nothing.
+// minimum in best / best_w (B7).  Every thread of the block calls it (it
+// holds barriers); `active` is false for the threads past the query axis'
+// ragged edge, which help load the tiles and compare nothing.
 __device__ __forceinline__ void scan_targets(float qx, float qy, float qz,
                                              bool active,
                                              const float* __restrict__ tgt,
@@ -145,8 +159,8 @@ __device__ __forceinline__ void scan_targets(float qx, float qy, float qz,
 // target slices, so that every unit does the same work and no block is
 // spent on a padded part.  chamfer_prep_kernel writes the list on the card
 // (count first); chamfer_pair_kernel is a persistent grid that walks it;
-// chamfer_unpack_kernel turns the packed minima into distances and
-// witnesses.
+// chamfer_unpack_kernel (B8: nn_unpack_kernel) turns the packed minima
+// into distances and witnesses.
 //
 // Minima are packed as (float bits of d) << 32 | index.  Since d >= +0,
 // the unsigned order of two keys is the lexicographic order of (d, index),
@@ -159,7 +173,7 @@ __device__ __forceinline__ void scan_targets(float qx, float qy, float qz,
 constexpr int kPairThreads = 128;
 constexpr int kQPT = 8;                        // query points per thread
 constexpr int kQChunk = kPairThreads * kQPT;   // query points per unit
-constexpr int kGroup = 8;                      // targets per column reduction
+constexpr int kGroup = 8;                      // candidates a witness group
 constexpr int kMaxSlice = 512;                 // target points per stage
 constexpr int kMinSlice = 32;                  // ... and the least a unit takes
 constexpr int kWaves = 8;                      // rounds of the grid to fill
@@ -287,9 +301,9 @@ __device__ __forceinline__ unsigned long long reduce_columns(
   return umin64(v, shfl_xor64(v, 16));
 }
 
-// One block per shape: sets the shape's keys of its valid parts to kNoKey,
-// then appends the shape's part pairs to the work list `work` ([count,
-// pair...], pair = (b * P + i) * P + j): every
+// One block per shape: sets the shape's keys of its valid parts to kNoKey
+// (in key2 too unless it is null), then appends the shape's part pairs to
+// the work list `work` ([count, pair...], pair = (b * P + i) * P + j): every
 // i, j < n_p (kDense), i == j (kDiagonal), or the pairs that the exact
 // triangle-inequality rule keeps (kPruned, the JAX package's
 // _forward_pairs at gy = 1, ops/chamfer.py:740-790): with centroids c,
@@ -301,7 +315,8 @@ __device__ __forceinline__ unsigned long long reduce_columns(
 __global__ void __launch_bounds__(kPrepThreads)
 chamfer_prep_kernel(const float* __restrict__ x, const float* __restrict__ y,
                     const int* __restrict__ n_parts,
-                    unsigned long long* __restrict__ keys, long long M,
+                    unsigned long long* __restrict__ key1,
+                    unsigned long long* __restrict__ key2,
                     int* __restrict__ work, int P, int N, int mode) {
   extern __shared__ float bounds[];  // kPruned: c1, c2 [P, 3]; r1, r2,
                                      // ub1, ub2 [P]
@@ -311,8 +326,8 @@ chamfer_prep_kernel(const float* __restrict__ x, const float* __restrict__ y,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   constexpr int kWarps = kPrepThreads / 32;
   for (long long e = threadIdx.x; e < (long long)n_p * N; e += kPrepThreads) {
-    keys[off + e] = kNoKey;
-    keys[M + off + e] = kNoKey;
+    key1[off + e] = kNoKey;
+    if (key2) key2[off + e] = kNoKey;
   }
   float* c1 = bounds;
   float* c2 = bounds + 3 * P;
@@ -408,32 +423,37 @@ chamfer_prep_kernel(const float* __restrict__ x, const float* __restrict__ y,
 // contiguous range of them, in list order, so that consecutive units
 // usually share their queries (same shape, x-part and chunk; only the
 // y-part or the slice moves on) and the queries and row minima stay in
-// registers across them.  Each thread holds kQPT
-// consecutive query points of the unit's chunk in registers (flat indices
-// qgroup .. qgroup + 7, an aligned group of 8 in its part) and walks the
-// target slice, staged in shared memory as float4 points that every lane
-// reads at the same address (one broadcast LDS.128 per target for kQPT
-// pairs).  Each pair distance serves both directions, with one minimum
-// each: the row minimum of every query is taken over a group of kGroup
-// targets and kept, with the group, when it beats the best so far (a
-// strict '<', so the first group wins a tie); the column minimum of every
-// target is taken over the thread's kQPT queries, packed with qgroup, and
+// registers across them.  Each thread holds kQPT consecutive query points
+// of the unit's chunk in registers (flat indices qgroup .. qgroup + 7, an
+// aligned group of 8 in its part) and walks the target slice, staged in
+// shared memory as float4 points that every lane reads at the same address
+// (one broadcast LDS.128 per target for kQPT pairs).  The row
+// minimum of every query is taken over a group of kGroup targets and kept,
+// with the group, when it beats the best so far (a strict '<', so the
+// first group wins a tie).  With kDirs == 2 (B1/B3) the same pair distance
+// also serves the other direction: the column minimum of every target is
+// taken over the thread's kQPT queries, packed with qgroup, and
 // reduced over the warp by reduce_columns and over the block by a
-// shared-memory atomicMin.  The columns go to the global keys by atomicMin
-// at the end of every unit, the rows when the queries change.  A key thus names an aligned group of 8 candidates, and
-// chamfer_unpack_kernel finds the first of them at the key's distance: the
-// first hit overall, since the smallest group holding a minimum holds the
-// smallest index at that minimum.  The next unit's slice is copied by
-// cp.async into the other stage while this one is computed.  Query slots
-// past N and target slots past the slice hold NaN: fminf ignores NaN and
-// every comparison with it is false, so they never win.
+// shared-memory atomicMin; the columns go to key2 by atomicMin at the end
+// of every unit.  With kDirs == 1 (B8) all of that is compiled out.  The
+// rows go to key1 when the queries change.  A key thus names an aligned
+// group of 8 candidates, and the unpack finds the first of them at the
+// key's distance: the first hit overall, since the smallest group holding
+// a minimum holds the smallest index at that minimum.  The next unit's
+// slice is copied by cp.async into the other stage while this one is
+// computed.  Query slots past N and target slots past the slice hold NaN:
+// fminf ignores NaN and every comparison with it is false, so they never
+// win.  (Sixteen queries a thread, in blocks of 64, ran no faster for B8.)
+template <int kDirs>
 __global__ void __launch_bounds__(kPairThreads, 4)
 chamfer_pair_kernel(const float* __restrict__ x, const float* __restrict__ y,
                     const int* __restrict__ work,
                     unsigned long long* __restrict__ key1,
                     unsigned long long* __restrict__ key2, int P, int N) {
+  static_assert(kQPT == kGroup, "a column key names a group of kGroup "
+                "queries");
   __shared__ float4 stage[2][kMaxSlice];
-  __shared__ unsigned long long col[kMaxSlice];
+  __shared__ unsigned long long col[kDirs == 2 ? kMaxSlice : 1];
   const Split s = split_units(work[0], N);
   const int* list = work + 1;
   const int lane = threadIdx.x & 31;
@@ -462,7 +482,7 @@ chamfer_pair_kernel(const float* __restrict__ x, const float* __restrict__ y,
     for (int t = threadIdx.x; t < tpad; t += kPairThreads) {
       if (t >= cur.tcnt)
         T[t] = make_float4(CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F, 0.0f);
-      col[t] = kNoKey;
+      if (kDirs == 2) col[t] = kNoKey;
     }
     __syncthreads();
 
@@ -495,9 +515,9 @@ chamfer_pair_kernel(const float* __restrict__ x, const float* __restrict__ y,
         for (int q = 0; q < kQPT; ++q) {
           const float d = sqdist(qx[q], qy[q], qz[q], t.x, t.y, t.z);
           gm[q] = k == 0 ? d : fminf(gm[q], d);
-          cd = q == 0 ? d : fminf(cd, d);
+          if (kDirs == 2) cd = q == 0 ? d : fminf(cd, d);
         }
-        ck[k] = pack_key(cd, qgroup);
+        if (kDirs == 2) ck[k] = pack_key(cd, qgroup);
       }
 #pragma unroll
       for (int q = 0; q < kQPT; ++q) {
@@ -506,14 +526,17 @@ chamfer_pair_kernel(const float* __restrict__ x, const float* __restrict__ y,
           bw[q] = wbase + g;
         }
       }
-      const unsigned long long v = reduce_columns(ck, lane);
-      if (lane < kGroup) atomicMin(&col[g + lane], v);
+      if (kDirs == 2) {
+        const unsigned long long v = reduce_columns(ck, lane);
+        if (lane < kGroup) atomicMin(&col[g + lane], v);
+      }
     }
-    __syncthreads();
-
-    const long long trow = ((long long)cur.b * P + cur.j) * N + cur.t0;
-    for (int t = threadIdx.x; t < cur.tcnt; t += kPairThreads)
-      atomicMin(&key2[trow + t], col[t]);
+    if (kDirs == 2) {
+      __syncthreads();
+      const long long trow = ((long long)cur.b * P + cur.j) * N + cur.t0;
+      for (int t = threadIdx.x; t < cur.tcnt; t += kPairThreads)
+        atomicMin(&key2[trow + t], col[t]);
+    }
     // the next unit of the range has the same queries when only its y-part
     // or slice differs: the row minima stay in registers until then
     fresh = nu >= end || nxt.b != cur.b || nxt.i != cur.i || nxt.q0 != cur.q0;
@@ -524,9 +547,31 @@ chamfer_pair_kernel(const float* __restrict__ x, const float* __restrict__ y,
           atomicMin(&key1[qrow + n0 + q], pack_key(bd[q], bw[q]));
       }
     }
-    __syncthreads();  // the stage and col are rewritten next
+    __syncthreads();  // the stage (and col) are rewritten next
     cur = nxt;
   }
+}
+
+// The witness behind key k (distance bits << 32 | the first flat index of
+// an aligned group of up to kGroup candidates among `other`'s [P * N]
+// points): the first candidate whose distance to `self`, recomputed as the
+// pair kernel computed it (the x point first, `self_is_x` telling which
+// that is), equals the key's distance d.
+__device__ __forceinline__ int first_hit(unsigned long long k,
+                                         const float* __restrict__ self,
+                                         const float* __restrict__ other,
+                                         bool self_is_x, int N, float& d) {
+  d = __uint_as_float((unsigned)(k >> 32));
+  const int base = (int)(unsigned)(k & 0xffffffffu);
+  const int local = base % N;
+  const float* o = other + (long long)base * 3;
+  for (int c = 0; c < kGroup && local + c < N; ++c, o += 3) {
+    const float dc = self_is_x
+                         ? sqdist(self[0], self[1], self[2], o[0], o[1], o[2])
+                         : sqdist(o[0], o[1], o[2], self[0], self[1], self[2]);
+    if (dc == d) return base + c;
+  }
+  return base;
 }
 
 // keys [2, B, P, N] -> dist1, dist2 [B, P, N] and witness1, witness2; 0
@@ -550,31 +595,42 @@ chamfer_unpack_kernel(const unsigned long long* __restrict__ keys,
   const int i = (int)((p / N) % P);
   float d = 0.0f;
   int w = -1;
-  if (i < min(max(n_parts[b], 0), P)) {
-    const unsigned long long k = keys[e];
-    d = __uint_as_float((unsigned)(k >> 32));
-    const int base = (int)(unsigned)(k & 0xffffffffu);
-    const int local = base % N;
-    const float* self = (second ? y : x) + p * 3;
-    const float* other = (second ? x : y) + ((long long)b * P * N + base) * 3;
-    w = base;
-    for (int c = 0; c < kGroup && local + c < N; ++c) {
-      const float* o = other + 3 * c;
-      const float dc =
-          second ? sqdist(o[0], o[1], o[2], self[0], self[1], self[2])
-                 : sqdist(self[0], self[1], self[2], o[0], o[1], o[2]);
-      if (dc == d) {
-        w = base + c;
-        break;
-      }
-    }
-  }
+  if (i < min(max(n_parts[b], 0), P))
+    w = first_hit(keys[e], (second ? y : x) + p * 3,
+                  (second ? x : y) + (long long)b * P * N * 3, !second, N, d);
   (second ? d2 : d1)[p] = d;
   (second ? w2 : w1)[p] = w;
 }
 
-// Blocks of chamfer_pair_kernel that fit on the current device at once,
-// asked once per device.
+// B8's unpack: keys [B, P, N] of one direction -> dist [B, P, N] (clamped
+// at 0, which keeps the JAX contract: a sum of squares is never below 0)
+// and idx in the JAX numbering (w / N) * npad + w % N; 0 and 0 at padded
+// parts, the JAX kernel's.
+__global__ void __launch_bounds__(kThreads)
+nn_unpack_kernel(const unsigned long long* __restrict__ keys,
+                 const int* __restrict__ n_parts,
+                 const float* __restrict__ query,
+                 const float* __restrict__ target, float* __restrict__ dist,
+                 int* __restrict__ idx, long long M, int P, int N, int npad) {
+  const long long p = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (p >= M) return;
+  const int b = (int)(p / ((long long)P * N));
+  const int i = (int)((p / N) % P);
+  float d = 0.0f;
+  int w = 0;
+  if (i < min(max(n_parts[b], 0), P)) {
+    const int hit = first_hit(keys[p], query + p * 3,
+                              target + (long long)b * P * N * 3, true, N, d);
+    d = fmaxf(d, 0.0f);
+    w = (hit / N) * npad + hit % N;
+  }
+  dist[p] = d;
+  idx[p] = w;
+}
+
+// Blocks of chamfer_pair_kernel<kDirs> that fit on the current device at
+// once, asked once per device and instantiation.
+template <int kDirs>
 cudaError_t resident_pair_blocks(int* out) {
   constexpr int kMaxDevices = 64;
   static int cached[kMaxDevices] = {0};
@@ -589,54 +645,11 @@ cudaError_t resident_pair_blocks(int* out) {
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, chamfer_pair_kernel, kPairThreads, 0);
+      &per_sm, chamfer_pair_kernel<kDirs>, kPairThreads, 0);
   if (err != cudaSuccess) return err;
   *out = sms * std::max(per_sm, 1);
   if (dev < kMaxDevices) cached[dev] = *out;
   return cudaSuccess;
-}
-
-// B8.  grid (ceil(N / kThreads), P, nb) over shapes [b0, b0 + nb): block
-// (x, i, b) serves query points [x * kThreads, ...) of part i of shape
-// b0 + b against every valid target part, scanned in ascending flat order.
-// Blocks of padded parts write 0 and 0 and exit.  The witness is stored in
-// the JAX numbering (w / N) * npad + w % N.  The clamp at 0 keeps the JAX
-// contract; the distance here is a sum of squares and never below 0.
-__global__ void __launch_bounds__(kThreads)
-nn_parts_kernel(const float* __restrict__ query,
-                const float* __restrict__ target,
-                const int* __restrict__ n_parts, float* __restrict__ dist,
-                int* __restrict__ idx, int P, int N, int npad) {
-  __shared__ float tile[kTile * 3];
-  const int b = blockIdx.z;
-  const int i = blockIdx.y;
-  const int n = blockIdx.x * kThreads + threadIdx.x;
-  const int n_p = min(max(n_parts[b], 0), P);
-  const long long qrow = ((long long)b * P + i) * N;
-
-  if (i >= n_p) {  // padded part: distance 0, index 0 (the JAX kernel's)
-    if (n < N) {
-      dist[qrow + n] = 0.0f;
-      idx[qrow + n] = 0;
-    }
-    return;  // uniform over the block: no thread reaches a barrier
-  }
-
-  float qx = 0.0f, qy = 0.0f, qz = 0.0f;
-  if (n < N) {
-    const float* q = query + (qrow + n) * 3;
-    qx = q[0];
-    qy = q[1];
-    qz = q[2];
-  }
-  float best = CUDART_INF_F;
-  int best_w = 0;
-  scan_targets(qx, qy, qz, n < N, target + (long long)b * P * N * 3, 0,
-               n_p * N, tile, best, best_w);
-  if (n < N) {
-    dist[qrow + n] = fmaxf(best, 0.0f);
-    idx[qrow + n] = (best_w / N) * npad + best_w % N;
-  }
 }
 
 // B7.  grid (ceil(N1 / kThreads), nb) over clouds [b0, b0 + nb): block
@@ -1162,17 +1175,17 @@ int mpa_chamfer_pair(const float* x, const float* y, const int* n_parts,
   // the grid: as many blocks as fit on the card at once; each reads the
   // list's count and takes its share of the units (split_units)
   int blocks = 0;
-  cudaError_t err = resident_pair_blocks(&blocks);
+  cudaError_t err = resident_pair_blocks<2>(&blocks);
   if (err != cudaSuccess) return (int)err;
   err = cudaMemsetAsync(work, 0, sizeof(int), s);
   if (err != cudaSuccess) return (int)err;
   const size_t bound_bytes = mode == kPruned ? 10 * P * sizeof(float) : 0;
   chamfer_prep_kernel<<<B, kPrepThreads, bound_bytes, s>>>(
-      x, y, n_parts, keys, M, work, P, N, mode);
+      x, y, n_parts, keys, keys + M, work, P, N, mode);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  chamfer_pair_kernel<<<blocks, kPairThreads, 0, s>>>(x, y, work, keys,
-                                                       keys + M, P, N);
+  chamfer_pair_kernel<2><<<blocks, kPairThreads, 0, s>>>(x, y, work, keys,
+                                                         keys + M, P, N);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long threads = 2 * M;
@@ -1217,22 +1230,39 @@ int mpa_chamfer_grad(const float* x, const float* y, const int* n_parts,
 }
 
 // B8: one direction of the unfused route's part-structured nearest
-// neighbour.  Shapes go in launches of at most kMaxGridYZ (gridDim.z).
+// neighbour, every valid point of query among the valid parts of target:
+// one memset of the list count, the prep kernel (dense list, key1 only),
+// one main launch of chamfer_pair_kernel<1> and the unpack.  keys
+// is [B * P * N] scratch, work [1 + B * P * P] scratch.  dist gets the
+// clamped distance, idx the JAX numbering (0 and 0 at padded parts).
+// Returns a cudaError_t.
 int mpa_nn_parts(const float* query, const float* target, const int* n_parts,
-                 float* dist, int* idx, int B, int P, int N, int npad,
-                 void* stream) {
+                 unsigned long long* keys, int* work, float* dist, int* idx,
+                 int B, int P, int N, int npad, void* stream) {
   if (B == 0 || P == 0 || N == 0) return 0;
-  for (long long b0 = 0; b0 < B; b0 += kMaxGridYZ) {
-    const int nb = (int)std::min<long long>(kMaxGridYZ, B - b0);
-    const long long off = b0 * P * N;
-    const dim3 grid((N + kThreads - 1) / kThreads, P, nb);
-    nn_parts_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        query + off * 3, target + off * 3, n_parts + b0, dist + off,
-        idx + off, P, N, npad);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+  // part-pair ids and flat indices into [P * N] are int32, and so is idx
+  if ((long long)B * P * P >= (1LL << 31) ||
+      (long long)P * std::max(N, npad) >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const long long M = (long long)B * P * N;
+  int blocks = 0;
+  cudaError_t err = resident_pair_blocks<1>(&blocks);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaMemsetAsync(work, 0, sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
+  chamfer_prep_kernel<<<B, kPrepThreads, 0, s>>>(
+      query, target, n_parts, keys, nullptr, work, P, N, kDense);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  chamfer_pair_kernel<1><<<blocks, kPairThreads, 0, s>>>(
+      query, target, work, keys, nullptr, P, N);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  nn_unpack_kernel<<<(unsigned)((M + kThreads - 1) / kThreads), kThreads, 0,
+                     s>>>(keys, n_parts, query, target, dist, idx, M, P, N,
+                          npad);
+  return (int)cudaGetLastError();
 }
 
 // B7: nearest neighbour of each of x's [B, N1] points among y's [B, N2]

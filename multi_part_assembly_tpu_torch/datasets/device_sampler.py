@@ -16,14 +16,19 @@ them):
     ceil(F / Fc) chunks; rows 0-8 the triangle of face f, row 9 prob, rows
     10-18 the triangle of alias(f), so a draw needs only f0's own column;
     `n_faces` is then the `[3 + Cmax, n_pieces]` i32 meta array (face
-    count, first chunk row, chunk count).
+    count, first chunk row, chunk count).  Beside it the port keeps the
+    RECORDS, the table's face-major copy `[total_chunks, Fc, 24]`
+    (`chunk_records`): face f0 of a piece is the 96-byte record
+    `base * Fc + f0`, its triangle, prob and alias triangle side by side.
 
-Kernels B5 (`sample_dense_cuda`) and B6 (`sample_chunked_cuda`) are CUDA C++
-in csrc/device_sampler.cu.  Beside each sits its plain PyTorch version
-(`sample_dense_plain`, `sample_chunked_plain`), computing the same draw in
-the same order of rounded operations.  A CPU tensor takes the plain
-version, since no kernel exists for the CPU; a CUDA tensor launches the
-kernel or raises.  `LAUNCHES` counts the kernel launches.
+Kernels B5 (`sample_dense_cuda`) and B6 (`sample_chunked_cuda`, which reads
+the records) are CUDA C++ in csrc/device_sampler.cu.  Beside each sits its
+plain PyTorch version on the same inputs (`sample_dense_plain`,
+`sample_records_plain`), computing the same draw in the same order of
+rounded operations; `sample_chunked_plain` is the same draw from the
+table itself.  A CPU tensor takes the plain version, since no kernel exists
+for the CPU; a CUDA tensor launches the kernel or raises.  `LAUNCHES`
+counts the kernel launches.
 
 The uniforms are `[K, 3, N]` f32 (rows 0-2 of the JAX package's
 `[K, 8, Npad]`: face draw, sqrt argument, barycentric mix), drawn with
@@ -38,10 +43,11 @@ import torch
 from .geometry import expand_geometry_batch
 from ..ops.cuda_build import load_library
 
-__all__ = ['DeviceTables', 'build_device_tables', 'sample_packed',
-           'sample_packed_ref', 'sample_and_expand', 'sample_dense_cuda',
-           'sample_chunked_cuda', 'sample_dense_plain',
-           'sample_chunked_plain', 'LAUNCHES', 'reset_launches']
+__all__ = ['DeviceTables', 'build_device_tables', 'chunk_records',
+           'sample_packed', 'sample_packed_ref', 'sample_and_expand',
+           'sample_dense_cuda', 'sample_chunked_cuda', 'sample_dense_plain',
+           'sample_chunked_plain', 'sample_records_plain', 'LAUNCHES',
+           'reset_launches']
 
 # dense table row layout (per piece, [16, Fmax] f32)
 _ROW_TRI = 0      # rows 0-8: a.xyz, (b-a).xyz, (c-a).xyz, component-major
@@ -80,14 +86,16 @@ def _round_up(x, m):
 class DeviceTables:
     """Device-resident sampling tables and the host path -> slot map."""
 
-    def __init__(self, table, n_faces, slot_of, fmax):
+    def __init__(self, table, n_faces, slot_of, fmax, records=None):
         # dense: table [n_pieces, 16, Fmax], n_faces [n_pieces] i32;
         # chunked: table [total_chunks, 24, Fc], n_faces the
-        # [3 + Cmax, n_pieces] i32 meta array
+        # [3 + Cmax, n_pieces] i32 meta array, and records its face-major
+        # copy [total_chunks, Fc, 24] (None for dense)
         self.table = table
         self.n_faces = n_faces
         self.slot_of = slot_of  # mesh path -> slot
         self.fmax = fmax        # dense Fmax / chunked Fc
+        self.records = records
 
     @property
     def layout(self):
@@ -95,7 +103,17 @@ class DeviceTables:
 
     @property
     def nbytes(self):
-        return self.table.numel() * 4 + self.n_faces.numel() * 4
+        extra = 0 if self.records is None else self.records.numel() * 4
+        return self.table.numel() * 4 + self.n_faces.numel() * 4 + extra
+
+
+def chunk_records(table):
+    """The chunked table's face-major copy: [total_chunks, 24, Fc] ->
+    [total_chunks, Fc, 24], made on the table's device.  Record
+    `base * Fc + f` of a piece whose chunks start at row `base` holds face
+    f's column of the table: the triangle (0-8), prob (9) and the alias
+    triangle (10-18), then zero padding, 96 bytes in all."""
+    return table.permute(0, 2, 1).contiguous()
 
 
 def build_device_tables(paths, sampler, device='cpu',
@@ -180,7 +198,9 @@ def build_device_tables(paths, sampler, device='cpu',
             table[base[i] + c, _CROW_TRI:_CROW_TRI + 9] = tri9[:, sl]
             table[base[i] + c, _CROW_PROB] = prob[sl]
             table[base[i] + c, _CROW_ATRI:_CROW_ATRI + 9] = atri[:, sl]
-    return DeviceTables(put(table), put(meta), slot_of, chunk_f)
+    table = put(table)
+    return DeviceTables(table, put(meta), slot_of, chunk_f,
+                        records=chunk_records(table))
 
 
 # ---------------------------------------------------------------------------
@@ -201,16 +221,19 @@ def _require(t, name, dtype, shape, device):
         raise ValueError(f'{name}: expected a contiguous tensor')
 
 
-def _launch(fn_name, table, rows, index, slots, uniforms, n_pieces,
-            return_draws):
-    """Checks, output allocation and one launch of a sampling kernel."""
+def _launch(fn_name, table, name, shape, width, index, slots, uniforms,
+            n_pieces, return_draws):
+    """Checks, output allocation and one launch of a sampling kernel on
+    `table` (named `name`, of `shape`, -1 for any extent) whose face axis
+    has `width` entries."""
     device = table.device
     if device.type != 'cuda':
-        raise ValueError(f'table: expected a CUDA tensor, got {device}')
-    if table.dim() != 3 or table.shape[1] != rows:
-        raise ValueError(f'table: expected shape [*, {rows}, *], got '
+        raise ValueError(f'{name}: expected a CUDA tensor, got {device}')
+    if table.dim() != len(shape) or any(
+            s not in (-1, t) for s, t in zip(shape, table.shape)):
+        raise ValueError(f'{name}: expected shape {list(shape)}, got '
                          f'{tuple(table.shape)}')
-    _require(table, 'table', torch.float32, table.shape, device)
+    _require(table, name, torch.float32, table.shape, device)
     _require(index, 'n_faces', torch.int32, index.shape, device)
     K = slots.shape[0]
     N = uniforms.shape[-1]
@@ -224,8 +247,8 @@ def _launch(fn_name, table, rows, index, slots, uniforms, n_pieces,
         rc = getattr(lib, fn_name)(
             table.data_ptr(), index.data_ptr(), slots.data_ptr(),
             uniforms.data_ptr(), out.data_ptr(),
-            None if draws is None else draws.data_ptr(), K, N,
-            table.shape[2], n_pieces, torch.cuda.current_stream().cuda_stream)
+            None if draws is None else draws.data_ptr(), K, N, width,
+            n_pieces, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f'{fn_name}: CUDA error {rc}')
     return out, draws
@@ -247,22 +270,24 @@ def sample_dense_cuda(table, n_faces, slots, uniforms, return_draws=False):
         points [K, N, 3] f32, and with `return_draws` the sampled face of
         each point, [K, N] int32
     """
-    out, draws = _launch('mpa_sample_dense', table, _N_ROWS, n_faces, slots,
+    out, draws = _launch('mpa_sample_dense', table, 'table',
+                         (-1, _N_ROWS, -1), table.shape[-1], n_faces, slots,
                          uniforms, n_faces.shape[0], return_draws)
     LAUNCHES['sample_dense'] += 1
     return (out, draws) if return_draws else out
 
 
-def sample_chunked_cuda(table, meta, slots, uniforms, return_draws=False):
-    """Kernel B6: the same draw from the chunked table, one direct gather
-    in f0's chunk (no chunk loop).
+def sample_chunked_cuda(records, meta, slots, uniforms, return_draws=False):
+    """Kernel B6: the same draw from the chunked layout, one 96-byte record
+    read whole in f0's chunk (no chunk loop).
 
     Replaces `_sample_kernel_chunked` (JAX device_sampler.py:269), launched
     by `_sample_points_chunked` (:319).
 
     Args:
-        table: [total_chunks, 24, Fc] f32 CUDA;  meta: [3 + Cmax, n_pieces]
-            int32;  slots, uniforms: as `sample_dense_cuda`
+        records: [total_chunks, Fc, 24] f32 CUDA, the face-major copy of
+            the chunked table (`chunk_records`);  meta: [3 + Cmax,
+            n_pieces] int32;  slots, uniforms: as `sample_dense_cuda`
 
     Returns:
         points [K, N, 3] f32, and with `return_draws` the draw of each
@@ -272,7 +297,8 @@ def sample_chunked_cuda(table, meta, slots, uniforms, return_draws=False):
     if meta.dim() != 2 or meta.shape[0] < 3:
         raise ValueError(f'meta: expected shape [3 + Cmax, n_pieces], got '
                          f'{tuple(meta.shape)}')
-    out, draws = _launch('mpa_sample_chunked', table, _N_ROWS_C, meta, slots,
+    out, draws = _launch('mpa_sample_chunked', records, 'records',
+                         (-1, -1, _N_ROWS_C), records.shape[1], meta, slots,
                          uniforms, meta.shape[1], return_draws)
     LAUNCHES['sample_chunked'] += 1
     return (out, draws) if return_draws else out
@@ -292,8 +318,11 @@ def _draw_face(u0, F):
 
 
 def _mix(tri, uniforms):
-    """(a + b1 e1) + b2 e2 from tri [K, N, 9] and uniforms [K, 3, N]."""
-    su = torch.sqrt(uniforms[:, 1])
+    """(a + b1 e1) + b2 e2 from tri [K, N, 9] and uniforms [K, 3, N].  The
+    square root is taken in f64 and rounded once to f32, which is correctly
+    rounded, as the kernels' __fsqrt_rn and JAX's sqrt are (the CPU's f32
+    torch.sqrt is not, for a few inputs)."""
+    su = torch.sqrt(uniforms[:, 1].double()).float()
     b1 = (su * (1.0 - uniforms[:, 2]))[..., None]
     b2 = (su * uniforms[:, 2])[..., None]
     return tri[..., 0:3] + b1 * tri[..., 3:6] + b2 * tri[..., 6:9]
@@ -338,6 +367,24 @@ def sample_chunked_plain(table, meta, slots, uniforms, return_draws=False):
     return out, torch.where(accept, f0, -1 - f0).to(torch.int32)
 
 
+def sample_records_plain(records, meta, slots, uniforms, return_draws=False):
+    """Plain version of `sample_chunked_cuda`, on its inputs: the draw of
+    `sample_chunked_plain` read from the face-major records, by flat
+    gathers."""
+    fc = records.shape[1]
+    flat = records.reshape(-1)
+    sl = slots.long()
+    f0, frac = _draw_face(uniforms[:, 0], meta[_META_NF, sl])
+    rec = (meta[_META_BASE, sl].long()[:, None] * fc + f0) * _N_ROWS_C
+    accept = frac < flat[rec + _CROW_PROB]                   # [K, N]
+    first = rec + torch.where(accept, _CROW_TRI, _CROW_ATRI)
+    tri = flat[first[..., None] + torch.arange(9, device=records.device)]
+    out = _mix(tri, uniforms)
+    if not return_draws:
+        return out
+    return out, torch.where(accept, f0, -1 - f0).to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # dispatch and the wire
 # ---------------------------------------------------------------------------
@@ -352,28 +399,39 @@ def sample_packed_ref(table, n_faces, slots, uniforms, return_draws=False):
     return fn(table, n_faces, slots, uniforms, return_draws=return_draws)
 
 
-def _sample_points(table, n_faces, slots, uniforms, return_draws=False):
+def _sample_points(table, n_faces, slots, uniforms, return_draws=False,
+                   records=None):
     """[K] slots + [K, 3, N] uniforms -> [K, N, 3] f32 (JAX
     device_sampler.py:357-392): the kernel of the table's layout on a CUDA
-    tensor, its plain version on a CPU tensor."""
+    tensor, its plain version on a CPU tensor.  The chunked layout draws
+    from `records` (`chunk_records(table)`, which its kernel needs) when
+    they are given, else, on the CPU only, from the table itself."""
+    chunked = table.shape[1] == _N_ROWS_C
+    if chunked and records is not None:
+        fn = sample_records_plain if records.device.type == 'cpu' \
+            else sample_chunked_cuda
+        return fn(records, n_faces, slots, uniforms,
+                  return_draws=return_draws)
     if table.device.type == 'cpu':
         return sample_packed_ref(table, n_faces, slots, uniforms,
                                  return_draws=return_draws)
-    fn = sample_chunked_cuda if table.shape[1] == _N_ROWS_C \
-        else sample_dense_cuda
-    return fn(table, n_faces, slots, uniforms, return_draws=return_draws)
+    if chunked:
+        raise ValueError('records: the chunked kernel reads the face-major '
+                         'records (chunk_records(table)), got None')
+    return sample_dense_cuda(table, n_faces, slots, uniforms,
+                             return_draws=return_draws)
 
 
-def sample_packed(table, n_faces, slots, generator, n_points):
+def sample_packed(table, n_faces, slots, generator, n_points, records=None):
     """Draw [K, n_points, 3] area-weighted surface samples on the table's
     device (JAX device_sampler.py:395-401)."""
     uniforms = torch.rand((slots.shape[0], 3, n_points), generator=generator,
                           device=table.device)
-    return _sample_points(table, n_faces, slots, uniforms)
+    return _sample_points(table, n_faces, slots, uniforms, records=records)
 
 
 def sample_and_expand(table, n_faces, slots, counts, seed, n_points,
-                      max_parts, data_keys):
+                      max_parts, data_keys, records=None):
     """Slot wire -> full dense batch on the table's device (JAX
     device_sampler.py:464-478): sample with a generator seeded from
     (_BASE_KEY, seed), then the expansion of `expand_geometry_batch`.
@@ -381,9 +439,11 @@ def sample_and_expand(table, n_faces, slots, counts, seed, n_points,
     Args:
         slots: [K] int32 and counts: [B] int32, on the table's device
         seed: the batch's `sample_seed` (a Python int)
+        records: the chunked layout's records (`DeviceTables.records`)
     """
     generator = torch.Generator(device=table.device)
     generator.manual_seed((_BASE_KEY << 32) | (int(seed) & 0xffffffff))
-    packed = sample_packed(table, n_faces, slots, generator, n_points)
+    packed = sample_packed(table, n_faces, slots, generator, n_points,
+                           records=records)
     return expand_geometry_batch(packed, counts, max_parts=max_parts,
                                  data_keys=data_keys)

@@ -242,7 +242,9 @@ def chamfer_grad_cuda(x, y, n_parts, w1, w2, g1, g2, diagonal, need_dy):
 
 def nn_parts_cuda(x, y, n_parts):
     """Kernel B8: nearest neighbour of every valid point of x among the
-    valid parts of y, one direction of the unfused route.
+    valid parts of y, one direction of the unfused route: B1's work list,
+    pair kernel (with the other direction compiled out) and unpack, over
+    scratch allocated here.
 
     Replaces `_nn_parts_pallas` (chamfer.py:330-374, body
     `_nn_parts_kernel` :284).
@@ -260,14 +262,20 @@ def nn_parts_cuda(x, y, n_parts):
     _require(x, 'x', torch.float32, (B, P, N, 3))
     _require(y, 'y', torch.float32, (B, P, N, 3))
     _require(n_parts, 'n_parts', torch.int32, (B, ))
-    dist = torch.empty((B, P, N), dtype=torch.float32, device=x.device)
-    idx = torch.empty((B, P, N), dtype=torch.int32, device=x.device)
+    if B * P * P >= 2**31:
+        raise ValueError(f'B * P * P = {B * P * P}: the work list holds '
+                         'int32 part-pair ids')
+    dev = x.device
+    keys = torch.empty(B * P * N, dtype=torch.int64, device=dev)
+    work = torch.empty(1 + B * P * P, dtype=torch.int32, device=dev)
+    dist = torch.empty((B, P, N), dtype=torch.float32, device=dev)
+    idx = torch.empty((B, P, N), dtype=torch.int32, device=dev)
     lib = load_library()
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(dev):
         rc = lib.mpa_nn_parts(
-            x.data_ptr(), y.data_ptr(), n_parts.data_ptr(), dist.data_ptr(),
-            idx.data_ptr(), B, P, N, _round_up(N, _LANES),
-            torch.cuda.current_stream().cuda_stream)
+            x.data_ptr(), y.data_ptr(), n_parts.data_ptr(), keys.data_ptr(),
+            work.data_ptr(), dist.data_ptr(), idx.data_ptr(), B, P, N,
+            _round_up(N, _LANES), torch.cuda.current_stream().cuda_stream)
     _check_rc(rc, 'mpa_nn_parts')
     LAUNCHES['nn_off'] += 1
     return dist, idx

@@ -54,7 +54,7 @@ def _bind(lib):
     lib.mpa_chamfer_grad.restype = i
     lib.mpa_chamfer_grad.argtypes = [p] * 9 + [i, i, i, i, p]
     lib.mpa_nn_parts.restype = i
-    lib.mpa_nn_parts.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.mpa_nn_parts.argtypes = [p] * 7 + [i, i, i, i, p]
     lib.mpa_nn_dir.restype = i
     lib.mpa_nn_dir.argtypes = [p, p, p, p, i, i, i, p]
     for name in ('mpa_sample_dense', 'mpa_sample_chunked'):

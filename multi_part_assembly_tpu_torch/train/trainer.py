@@ -124,7 +124,8 @@ class Trainer:
                 dev['part_counts'], seed,
                 n_points=int(self.cfg.data.num_pc_points),
                 max_parts=int(self.cfg.data.max_num_part),
-                data_keys=tuple(self.cfg.data.data_keys))
+                data_keys=tuple(self.cfg.data.data_keys),
+                records=tables.records)
         else:
             batch = _to_device(batch, self.device)
         aug = augment_geometry_batch(

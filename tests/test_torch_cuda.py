@@ -13,8 +13,10 @@ gradient (plus 1e-6), since B2/B4 sum the terms that share a witness by
 shared-memory atomicAdds, and index_add_ on the card by global ones, each
 in a varying order; padded parts' gradients exactly 0.  The same holds for
 B7 and B8 and for the card against the CPU.  The sampling kernels' points
-bit for bit and their face draws exactly, for the same reason.  Losses on the card within 1e-5 relative of
-the CPU's.
+bit for bit and their face draws exactly, for the same reason, on the card
+and against the CPU (the plain versions take a correctly rounded square
+root, as the kernels do).  Losses on the card within 1e-5 relative of the
+CPU's.
 """
 
 import os
@@ -147,45 +149,19 @@ def test_unfused_route_launch_counters(cuda, unfused):
                            'bwd_diag': 0, 'nn_off': 4, 'nn_dir': 2}
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize('diagonal', [False, True])
-def test_nn_parts_kernel_matches_plain(cuda, diagonal):
-    """B8 against its plain version, in the whole-shape form and in the
-    B*P one-part form of the diagonal; and against B1 renumbered."""
-    x, y, valids = _inputs(cuda, N=300)
-    n_parts = valids.to(torch.int32).sum(1, dtype=torch.int32)
-    B, P, N, _ = x.shape
-    if diagonal:
-        n_parts = valids.to(torch.int32).reshape(B * P)
-        x, y = x.view(B * P, 1, N, 3), y.view(B * P, 1, N, 3)
-    kern = TC.nn_parts_cuda(x, y, n_parts)
-    plain = TC.nn_parts_plain(x, y, n_parts)
-    for k, p in zip(kern, plain):
-        assert torch.equal(k, p)
-    d_b1, _, w_b1, _ = TC.nn_pair_cuda(x, y, n_parts, False)
-    assert torch.equal(kern[0], d_b1)
-    idx = kern[1].long()
-    renumbered = torch.where(w_b1 >= 0, idx // 384 * N + idx % 384, -1)
-    assert torch.equal(renumbered.to(torch.int32), w_b1)
-    # the other direction of the same call
-    _, d2_b1, _, w2_b1 = TC.nn_pair_cuda(x, y, n_parts, False)
-    d2_b8, i2_b8 = TC.nn_parts_cuda(y, x, n_parts)
-    assert torch.equal(d2_b8, d2_b1)
-    idx = i2_b8.long()
-    renumbered = torch.where(w2_b1 >= 0, idx // 384 * N + idx % 384, -1)
-    assert torch.equal(renumbered.to(torch.int32), w2_b1)
-
-
 def _pair_clouds(device, B, P, N, nparts, kind, seed=0):
-    """Part clouds for B1-B4: 'spread' parts (0.1-scale around centres in
-    [-2, 2]^3, so pruning drops pairs), 'ties' (half the centres at 0,
-    coordinates on a 1/64 grid, duplicated points) or 'collapsed' (spread,
-    with every y part shrunk to its first 4 points, so that witnesses
-    crowd onto a few points in both directions)."""
+    """Part clouds for B1-B4 and B8: 'spread' parts (0.1-scale around
+    centres in [-2, 2]^3, so pruning drops pairs), 'ties' (half the centres
+    at 0, coordinates on a 1/64 grid, duplicated points), 'overlap' (every
+    centre at 0) or 'collapsed' (spread, with every y part shrunk to its
+    first 4 points, so that witnesses crowd onto a few points in both
+    directions)."""
     rng = np.random.RandomState(seed)
     centres = rng.uniform(-2, 2, (B, P, 1, 3))
     if kind == 'ties':
         centres[:, ::2] = 0.0
+    if kind == 'overlap':
+        centres[:] = 0.0
     x = centres + 0.1 * rng.randn(B, P, N, 3)
     y = x + 0.02 * rng.randn(B, P, N, 3)
     if kind == 'ties':
@@ -209,6 +185,7 @@ PAIR_CASES = {
     'one_point': (2, 4, 1, (4, 2), 'spread'),
     'long_parts': (2, 3, 1300, (3, 2), 'ties'),
     'collapsed': (3, 6, 300, (6, 4, 1), 'collapsed'),
+    'overlap': (2, 5, 300, (5, 3), 'overlap'),
 }
 
 
@@ -231,6 +208,37 @@ def test_pair_kernel_matches_plain(cuda, case):
     TC.nn_pair_cuda(x, y, n_parts, False, prune=True, work=work)
     assert torch.equal(TC.work_keep(work, B, P),
                        TC.prune_keep_plain(x, y, n_parts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('form', ['whole', 'diag'])
+@pytest.mark.parametrize('case', sorted(PAIR_CASES))
+def test_nn_parts_kernel_matches_plain(cuda, case, form):
+    """B8 against its plain version, both directions: distances bit for
+    bit, indices exactly, 0 and 0 at padded parts; in the whole-shape form
+    and in the B*P one-part form of the diagonal (0/1 counts); and against
+    B1 on the same clouds, its witnesses renumbered."""
+    B, P, N, nparts, kind = PAIR_CASES[case]
+    x, y, n_parts = _pair_clouds(cuda, B, P, N, nparts, kind)
+    if form == 'diag':
+        n_parts = (torch.arange(P, device=cuda)[None] <
+                   n_parts[:, None]).to(torch.int32).reshape(B * P)
+        x, y = x.view(B * P, 1, N, 3), y.view(B * P, 1, N, 3)
+    npad = (N + 127) // 128 * 128
+    valid = (torch.arange(x.shape[1], device=cuda)[None] <
+             n_parts[:, None])[..., None].expand(x.shape[:3])
+    _, _, w1, w2 = TC.nn_pair_cuda(x, y, n_parts, False)
+    d1, d2 = TC.nn_pair_plain(x, y, n_parts, False)[:2]
+    for q, t, d_b1, w_b1 in ((x, y, d1, w1), (y, x, d2, w2)):
+        kern = TC.nn_parts_cuda(q, t, n_parts)
+        plain = TC.nn_parts_plain(q, t, n_parts)
+        for k, p in zip(kern, plain):
+            assert torch.equal(k, p)
+        assert not kern[0][~valid].any() and not kern[1][~valid].any()
+        assert torch.equal(kern[0], d_b1)
+        idx = kern[1].long()
+        renumbered = torch.where(valid, idx // npad * N + idx % npad, -1)
+        assert torch.equal(renumbered.to(torch.int32), w_b1)
 
 
 @pytest.mark.cuda
@@ -370,20 +378,23 @@ def _sampler_inputs(device, n_pieces=4, K=50, N=1000, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize('layout', ['dense', 'chunked'])
 def test_sampler_kernels_match_plain(cuda, tmp_path, layout):
+    """B5, and B6 on its face-major records, against the plain versions on
+    the same inputs and on the table itself, on the card and on the CPU,
+    bit for bit, draws included."""
     tables = _soup_tables(tmp_path, layout, cuda)
     slots, u = _sampler_inputs(cuda)
     kern = TDS._sample_points(tables.table, tables.n_faces, slots, u,
-                              return_draws=True)
-    plain = TDS.sample_packed_ref(tables.table, tables.n_faces, slots, u,
-                                  return_draws=True)
-    on_cpu = TDS.sample_packed_ref(tables.table.cpu(), tables.n_faces.cpu(),
-                                   slots.cpu(), u.cpu(), return_draws=True)
-    for k, p in zip(kern, plain):
-        assert torch.equal(k, p)
-    # the same draws on the CPU; its torch.sqrt differs from the card's
-    # correctly rounded one in the last bit for some inputs
-    assert torch.equal(kern[1].cpu(), on_cpu[1])
-    torch.testing.assert_close(kern[0].cpu(), on_cpu[0], atol=1e-6, rtol=0)
+                              return_draws=True, records=tables.records)
+    plains = [TDS.sample_packed_ref(tables.table, tables.n_faces, slots, u,
+                                    return_draws=True),
+              TDS.sample_packed_ref(tables.table.cpu(), tables.n_faces.cpu(),
+                                    slots.cpu(), u.cpu(), return_draws=True)]
+    if layout == 'chunked':
+        plains.append(TDS.sample_records_plain(
+            tables.records, tables.n_faces, slots, u, return_draws=True))
+    for plain in plains:
+        for k, p in zip(kern, plain):
+            assert torch.equal(k.cpu(), p.cpu())
 
 
 @pytest.mark.cuda
@@ -393,8 +404,18 @@ def test_sampler_layouts_agree_and_count(cuda, tmp_path):
     slots, u = _sampler_inputs(cuda, seed=1)
     TDS.reset_launches()
     pd = TDS._sample_points(dense.table, dense.n_faces, slots, u)
-    pc = TDS._sample_points(chunk.table, chunk.n_faces, slots, u)
+    pc = TDS._sample_points(chunk.table, chunk.n_faces, slots, u,
+                            records=chunk.records)
     assert torch.equal(pd, pc)
     assert TDS.LAUNCHES == {'sample_dense': 1, 'sample_chunked': 1}
     with pytest.raises(ValueError, match='uniforms'):
         TDS.sample_dense_cuda(dense.table, dense.n_faces, slots, u[:, :2])
+    with pytest.raises(ValueError, match='records'):
+        TDS._sample_points(chunk.table, chunk.n_faces, slots, u)
+    with pytest.raises(ValueError, match='records: expected shape'):
+        TDS.sample_chunked_cuda(chunk.table, chunk.n_faces, slots, u)
+    # a slot outside [0, n_pieces) gives NaN points, not another piece's
+    bad = torch.full_like(slots, 4)
+    assert torch.isnan(TDS.sample_chunked_cuda(chunk.records, chunk.n_faces,
+                                               bad, u)).all()
+    assert TDS.LAUNCHES == {'sample_dense': 1, 'sample_chunked': 2}

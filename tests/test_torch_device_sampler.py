@@ -115,7 +115,11 @@ def test_tables_match_jax(meshes, mesh_set, layout, chunk_f):
                                   np.asarray(ref.n_faces))
     assert ours.n_faces.dtype == torch.int32
     assert ours.slot_of == ref.slot_of and ours.fmax == ref.fmax
-    assert ours.nbytes == ref.nbytes
+    # the chunked layout also holds its face-major records, as many bytes
+    # as its table
+    records = 0 if layout == 'dense' else ours.table.numel() * 4
+    assert (ours.records is None) == (layout == 'dense')
+    assert ours.nbytes == ref.nbytes + records
 
 
 # (soup face counts, budget bytes, chunk width): the cases of
@@ -226,6 +230,82 @@ def test_chunked_matches_dense_bitwise(meshes):
                         torch.where(fc < 0, -1 - fc, fc).long()]
     expect = torch.where(fc < 0, (alias + 0.5).to(torch.int32), fc)
     assert torch.equal(fd, expect)
+
+
+@pytest.mark.parametrize('chunk_f', [512, 128])
+@pytest.mark.parametrize('mesh_set', ['cubes', 'soups'])
+def test_records_match_jax_columns(meshes, mesh_set, chunk_f):
+    """Every face's record, found as the kernel finds it (record base * Fc
+    + f of the piece whose chunks start at row base), holds the JAX chunked
+    table's column of that face: triangle, prob, alias triangle, then zero
+    padding."""
+    ours, ref = _both_tables(meshes[mesh_set], layout='chunked',
+                             chunk_f=chunk_f)
+    table, meta = np.asarray(ref.table), np.asarray(ref.n_faces)
+    records = ours.records.numpy()
+    assert records.shape == (table.shape[0], chunk_f, tds._N_ROWS_C)
+    flat = records.reshape(-1, tds._N_ROWS_C)
+    for slot in range(meta.shape[1]):
+        base, nch = meta[dsmp._META_BASE, slot], meta[dsmp._META_NCH, slot]
+        faces = np.arange(nch * chunk_f)
+        got = flat[base * chunk_f + faces]                   # [F, 24]
+        want = table[base + faces // chunk_f, :, faces % chunk_f]
+        for rows in (slice(dsmp._CROW_TRI, dsmp._CROW_TRI + 9),
+                     slice(dsmp._CROW_PROB, dsmp._CROW_PROB + 1),
+                     slice(dsmp._CROW_ATRI, dsmp._CROW_ATRI + 9)):
+            np.testing.assert_array_equal(got[:, rows], want[:, rows])
+        assert not got[:, dsmp._CROW_ATRI + 9:].any()
+
+
+@pytest.mark.parametrize('return_draws', [False, True])
+@pytest.mark.parametrize('mesh_set', ['cubes', 'soups'])
+def test_records_sampler_matches_chunked_and_jax(meshes, mesh_set,
+                                                 return_draws):
+    """The plain version of the chunked kernel (`sample_records_plain`, on
+    the records) equals `sample_chunked_plain` (on the table) bit for bit,
+    and the JAX chunked reference on the same uniforms; `_sample_points`
+    takes it when the records are given."""
+    chunk_f = 128 if mesh_set == 'soups' else 512
+    ours, ref = _both_tables(meshes[mesh_set], layout='chunked',
+                             chunk_f=chunk_f)
+    K, n = 9, 300
+    slots = np.random.default_rng(5).integers(
+        0, len(meshes[mesh_set]), K).astype(np.int32)
+    u = _uniforms(K, 384, seed=6)
+    args = (ours.n_faces, torch.tensor(slots), torch.tensor(u[:, :3, :n]))
+    got = tds.sample_records_plain(ours.records, *args,
+                                   return_draws=return_draws)
+    want = tds.sample_chunked_plain(ours.table, *args,
+                                    return_draws=return_draws)
+    via = tds._sample_points(ours.table, *args, return_draws=return_draws,
+                             records=ours.records)
+    if return_draws:
+        (got, draws), (want, want_draws), (via, via_draws) = got, want, via
+        np.testing.assert_array_equal(draws.numpy(), want_draws.numpy())
+        np.testing.assert_array_equal(draws.numpy(), via_draws.numpy())
+        np.testing.assert_array_equal(
+            draws.numpy(), _np_draws(np.asarray(ref.table),
+                                     np.asarray(ref.n_faces), slots,
+                                     u[:, 0, :n]))
+    assert torch.equal(got, want) and torch.equal(got, via)
+    j_ref = np.asarray(dsmp.sample_packed_ref(
+        ref.table, ref.n_faces, jnp.asarray(slots), jnp.asarray(u), n))
+    np.testing.assert_array_equal(got.numpy(), j_ref)
+
+
+def test_chunked_kernel_takes_records():
+    """The chunked kernel's wrapper takes the records ([*, Fc, 24]) and
+    refuses a CPU tensor; a chunked table on the card with no records
+    raises rather than taking another path."""
+    records = torch.zeros((2, 8, tds._N_ROWS_C))
+    meta = torch.zeros((4, 1), dtype=torch.int32)
+    slots = torch.zeros(1, dtype=torch.int32)
+    u = torch.zeros((1, 3, 4))
+    with pytest.raises(ValueError, match='records: expected a CUDA tensor'):
+        tds.sample_chunked_cuda(records, meta, slots, u)
+    with pytest.raises(ValueError, match='records'):
+        tds._sample_points(torch.zeros((2, tds._N_ROWS_C, 8), device='meta'),
+                           meta, slots, u)
 
 
 def test_sample_and_expand_is_seeded(meshes):
