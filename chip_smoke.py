@@ -30,10 +30,12 @@ Phases, each printing its own line(s); any failure exits non-zero:
      versions on the synthetic everyday set's tables and on a ragged set of
      triangle soups, at an everyday batch's row count and at the dense
      bound K = B*P: points bit for bit, face draws exactly, and dense equal
-     to chunked.
+     to chunked; their times with the L2 flushed before each launch (the
+     kernels line's) and warm.
      Kernel and plain times from CUDA events, each beside its bound (the
      larger of its operations over the card's peak and its bytes over the
-     memory rate);
+     memory rate; the samplers' bytes counted on the run's draws); a
+     kernel timed under its bound fails the run;
   4. slice: one PN-Transformer MoN loss and its gradients on the card
      against the same step on the CPU (plain chamfer), same weights; then
      repulsion_cd_loss forward and backward at flagship shapes through B7,
@@ -156,6 +158,27 @@ def _cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _cold_ms(fn, iters):
+    """Mean device milliseconds of fn() with a cold L2: before each run a
+    256 MB buffer is written (the H100's L2 holds 50 MB), and each run is
+    timed alone by its own CUDA events, all queued behind a device sleep.
+    What a kernel costs when its inputs come from HBM, as a train step's
+    table reads do."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device='cuda')
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda._sleep(50_000_000)
+    for start, end in events:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
 def _call_ms(fn, iters):
@@ -573,30 +596,60 @@ def _sampler_fns(layout, t):
     on the inputs the kernel takes: the dense table, or the chunked
     table's face-major records."""
     if layout == 'chunked':
-        return (lambda s, u: DS.sample_chunked_cuda(t.records, t.n_faces,
-                                                    s, u),
-                lambda s, u: DS.sample_records_plain(t.records, t.n_faces,
-                                                     s, u))
+        records = DS.chunk_records(t.table)
+        return (lambda s, u: DS.sample_chunked_cuda(records, t.n_faces, s, u),
+                lambda s, u: DS.sample_records_plain(records, t.n_faces, s,
+                                                     u))
     return (lambda s, u: DS.sample_dense_cuda(t.table, t.n_faces, s, u),
             lambda s, u: DS.sample_dense_plain(t.table, t.n_faces, s, u))
+
+
+def _distinct(slots, idx, mask=None):
+    """How many distinct (slot, index) pairs a [K, N] index holds (where
+    `mask` is true)."""
+    keys = slots.long()[:, None] * (1 << 33) + idx.long()
+    return int(torch.unique(keys if mask is None else keys[mask]).numel())
+
+
+def _sampler_bytes(layout, t, slots, u, draws):
+    """The least bytes a sampling call moves on this run's draws: the
+    uniforms read and the points written (24 a point), the slots and the
+    pieces' face counts (and chunked: first chunks), and each table value
+    the draws need read once: prob of each distinct first draw f0 (dense:
+    its alias too where the alias was taken), and the triangle of each
+    distinct face drawn (chunked: f0's own or its inlined alias triangle).
+    Faces drawn again cost nothing more."""
+    K, n = u.shape[0], u.shape[-1]
+    pieces = int(torch.unique(slots).numel())
+    dense = layout == 'dense'
+    nf = t.n_faces if dense else t.n_faces[DS._META_NF]
+    f0, frac = DS._draw_face(u[:, 0], nf[slots.long()])
+    nbytes = 24 * K * n + 4 * K + (4 if dense else 8) * pieces + \
+        4 * _distinct(slots, f0) + 36 * _distinct(slots, draws)
+    if dense:
+        prob = t.table[slots.long()[:, None], DS._ROW_PROB, f0]
+        nbytes += 4 * _distinct(slots, f0, frac >= prob)
+    return nbytes
 
 
 def _check_sampler(name, tables, slots, seed):
     """Both sampling kernels against their plain versions on one slot
     array (the chunked kernel also against the plain version on the table
-    itself), and dense against chunked, then their times; returns
-    {layout: (err, kernel ms, plain ms, bound ms, bound by)}."""
+    itself), and dense against chunked, then their times, cold (the
+    kernels line's) and warm; returns {layout: (err, kernel ms, plain ms,
+    bound ms, bound by)}."""
     g = torch.Generator(device='cuda').manual_seed(seed)
     u = torch.rand((slots.shape[0], 3, N), generator=g, device='cuda')
     out, tag = {}, f'{name} K={slots.shape[0]} N={N}'
     for layout, t in tables.items():
         pk, dk = DS._sample_points(t.table, t.n_faces, slots, u,
-                                   return_draws=True, records=t.records)
+                                   return_draws=True)
         plains = [DS.sample_packed_ref(t.table, t.n_faces, slots, u,
                                        return_draws=True)]
         if layout == 'chunked':
-            plains.append(DS.sample_records_plain(t.records, t.n_faces, slots,
-                                                  u, return_draws=True))
+            plains.append(DS.sample_records_plain(
+                DS.chunk_records(t.table), t.n_faces, slots, u,
+                return_draws=True))
         torch.cuda.synchronize()
         err = max(float((pk - pp).abs().max()) for pp, _ in plains)
         mismatches = sum(int((dk != dp).sum()) for _, dp in plains)
@@ -626,20 +679,23 @@ def _check_sampler(name, tables, slots, seed):
     result = {}
     for layout, t in tables.items():
         kern, plain = _sampler_fns(layout, t)
-        k_ms = _cuda_ms(lambda: kern(slots, u), 100)
-        p_ms = _cuda_ms(lambda: plain(slots, u), 20)
+        k_ms = _cold_ms(lambda: kern(slots, u), 100)
+        warm_ms = _cuda_ms(lambda: kern(slots, u), 100)
+        p_ms = _cold_ms(lambda: plain(slots, u), 20)
         k_call = _call_ms(lambda: kern(slots, u), 100)
-        # a point reads its three uniforms, its triangle's nine floats and
-        # (dense) its acceptance and alias or (chunked) its acceptance, and
-        # writes three floats: what the function needs, not the 96-byte
-        # record the chunked kernel reads
-        point_bytes = 12 + 36 + (8 if layout == 'dense' else 4) + 12
-        bound = _bound(nbytes=point_bytes * slots.shape[0] * N)
+        nbytes = _sampler_bytes(layout, t, slots, u, out[layout][2])
+        bound = _bound(nbytes=nbytes)
         print(f'kernels: sample_{layout} {tag}: kernel {k_ms:.4f} ms on the '
-              f'device ({k_call:.4f} ms per call by the host clock), plain '
-              f'{p_ms:.4f} ms ({t.nbytes} table bytes), bound '
-              f'{bound[0]:.4f} ms (bytes), share {bound[0] / k_ms:.3f}',
+              f'device with a cold L2 ({warm_ms:.4f} ms warm, back to back; '
+              f'{k_call:.4f} ms per call by the host clock), plain '
+              f'{p_ms:.4f} ms cold ({t.nbytes} table bytes), bound '
+              f'{bound[0]:.4f} ms (bytes: {nbytes} on these draws, '
+              f'{nbytes / slots.shape[0] / N:.1f} a point), share '
+              f'{bound[0] / k_ms:.3f} cold, {bound[0] / warm_ms:.3f} warm',
               flush=True)
+        if bound[0] > k_ms:
+            raise AssertionError(f'sample_{layout} {tag}: {k_ms:.4f} ms is '
+                                 f'under its bound {bound[0]:.4f} ms')
         result[layout] = (out[layout][0], k_ms, p_ms, *bound)
     return result
 
@@ -665,11 +721,10 @@ def phase_sampler(data_dir, tmp):
             print(f'kernels: {name} {layout} tables of {len(paths)} pieces '
                   f'built in {time.perf_counter() - t0:.2f} s, '
                   f'{tables[layout].nbytes} bytes in all', flush=True)
-        chunked = tables['chunked']
-        ms = _cuda_ms(lambda: DS.chunk_records(chunked.table), 5)
-        print(f'kernels: {name} chunked records (face-major copy, part of '
-              f'the build above): {chunked.records.numel() * 4} bytes, '
-              f'{ms:.4f} ms on the device to make from the table', flush=True)
+        records = DS.chunk_records(tables['chunked'].table)
+        print(f'kernels: {name} chunked records (the chunked table, stored '
+              f'face-major; built above): {records.numel() * 4} bytes, '
+              f'contiguous {records.is_contiguous()}', flush=True)
         if name == 'everyday':  # the slots of one real batch
             ds._device_tables = tables['dense']
             order = rng.permutation(len(ds))[:B].tolist()
@@ -995,6 +1050,10 @@ def main():
          'bound_ms': results[key][3], 'bound_by': results[key][4],
          'library_ms': None}
         for name, key, rep, source in KERNELS]}
+    for row in summary['kernels']:
+        if row['bound_ms'] > row['ms']:
+            raise AssertionError(f'{row["name"]}: {row["ms"]:.4f} ms is under '
+                                 f'its bound {row["bound_ms"]:.4f} ms')
     print(json.dumps(summary), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

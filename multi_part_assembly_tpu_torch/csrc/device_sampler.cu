@@ -7,10 +7,11 @@
 //   mpa_sample_chunked  <- _sample_kernel_chunked (:269), launched by
 //                          _sample_points_chunked on the chunked
 //                          [total_chunks, 24, Fc] table and its
-//                          [3 + Cmax, n_pieces] meta array; the kernel reads
-//                          the table's face-major copy, the records
+//                          [3 + Cmax, n_pieces] meta array; the port stores
+//                          that table face-major, as the records
 //                          [total_chunks * Fc, 24] (one 96-byte record a
-//                          face, datasets/device_sampler.py chunk_records)
+//                          face, datasets/device_sampler.py chunk_records),
+//                          which the kernel reads
 //
 // Both draw N area-weighted surface points for each packed part row k by
 // the Walker alias method, with the uniforms u [K, 3, N] given:
@@ -50,8 +51,13 @@
 // (the rest of the middle one and the last) as two 16-byte loads, the mix
 // and one write.  One sector
 // fewer a point outweighs the extra round: the whole record as 16-byte
-// loads in one round (three sectors a point) took 1.2 to 1.3x as long on
-// the card (PERF.md).  The TPU's devices (one-hot MXU matmuls to turn
+// loads in one round (three sectors a point) took 1.2 to 1.3x as long with
+// the records warm in L2 and 1.04 to 1.06x as long cold
+// (scripts/sampler_reads_torch.py, PERF.md).  Cold, the launch is set by
+// its chain of four dependent HBM reads and by the records' bytes: a
+// piece whose faces are nearly all drawn (everyday, N >= F) moves its
+// records whole, 96 bytes a face against the 44 of the dense rows it
+// uses, so there the dense kernel is the faster of the two.  The TPU's devices (one-hot MXU matmuls to turn
 // per-point gathers into dense work, the sequential chunk axis of the grid
 // with its accumulate) have no counterpart: a gather is native here.
 // Flat offsets are 64-bit: a chunked table can pass 2^31 floats.

@@ -16,19 +16,21 @@ them):
     ceil(F / Fc) chunks; rows 0-8 the triangle of face f, row 9 prob, rows
     10-18 the triangle of alias(f), so a draw needs only f0's own column;
     `n_faces` is then the `[3 + Cmax, n_pieces]` i32 meta array (face
-    count, first chunk row, chunk count).  Beside it the port keeps the
-    RECORDS, the table's face-major copy `[total_chunks, Fc, 24]`
-    (`chunk_records`): face f0 of a piece is the 96-byte record
-    `base * Fc + f0`, its triangle, prob and alias triangle side by side.
+    count, first chunk row, chunk count).  The port stores it face-major,
+    as the RECORDS `[total_chunks, Fc, 24]`, and `table` is their view
+    `records.permute(0, 2, 1)`, so it holds the JAX values with no second
+    copy; `chunk_records(table)` gives the records back.  Face f0 of a
+    piece is the 96-byte record `base * Fc + f0`, its triangle, prob and
+    alias triangle side by side.
 
 Kernels B5 (`sample_dense_cuda`) and B6 (`sample_chunked_cuda`, which reads
 the records) are CUDA C++ in csrc/device_sampler.cu.  Beside each sits its
 plain PyTorch version on the same inputs (`sample_dense_plain`,
 `sample_records_plain`), computing the same draw in the same order of
-rounded operations; `sample_chunked_plain` is the same draw from the
-table itself.  A CPU tensor takes the plain version, since no kernel exists
-for the CPU; a CUDA tensor launches the kernel or raises.  `LAUNCHES`
-counts the kernel launches.
+rounded operations; `sample_chunked_plain` is the same draw read from the
+table's JAX layout, the reference.  A CPU tensor takes the plain version,
+since no kernel exists for the CPU; a CUDA tensor launches the kernel or
+raises.  `LAUNCHES` counts the kernel launches.
 
 The uniforms are `[K, 3, N]` f32 (rows 0-2 of the JAX package's
 `[K, 8, Npad]`: face draw, sqrt argument, barycentric mix), drawn with
@@ -86,16 +88,14 @@ def _round_up(x, m):
 class DeviceTables:
     """Device-resident sampling tables and the host path -> slot map."""
 
-    def __init__(self, table, n_faces, slot_of, fmax, records=None):
+    def __init__(self, table, n_faces, slot_of, fmax):
         # dense: table [n_pieces, 16, Fmax], n_faces [n_pieces] i32;
-        # chunked: table [total_chunks, 24, Fc], n_faces the
-        # [3 + Cmax, n_pieces] i32 meta array, and records its face-major
-        # copy [total_chunks, Fc, 24] (None for dense)
+        # chunked: table [total_chunks, 24, Fc], the view of the records,
+        # n_faces the [3 + Cmax, n_pieces] i32 meta array
         self.table = table
         self.n_faces = n_faces
         self.slot_of = slot_of  # mesh path -> slot
         self.fmax = fmax        # dense Fmax / chunked Fc
-        self.records = records
 
     @property
     def layout(self):
@@ -103,17 +103,17 @@ class DeviceTables:
 
     @property
     def nbytes(self):
-        extra = 0 if self.records is None else self.records.numel() * 4
-        return self.table.numel() * 4 + self.n_faces.numel() * 4 + extra
+        return self.table.numel() * 4 + self.n_faces.numel() * 4
 
 
 def chunk_records(table):
-    """The chunked table's face-major copy: [total_chunks, 24, Fc] ->
-    [total_chunks, Fc, 24], made on the table's device.  Record
-    `base * Fc + f` of a piece whose chunks start at row `base` holds face
-    f's column of the table: the triangle (0-8), prob (9) and the alias
-    triangle (10-18), then zero padding, 96 bytes in all."""
-    return table.permute(0, 2, 1).contiguous()
+    """The records of a chunked table, [total_chunks, 24, Fc] ->
+    [total_chunks, Fc, 24]: a view, contiguous for the tables that
+    `build_device_tables` makes.  Record `base * Fc + f` of a piece whose
+    chunks start at row `base` holds face f's column of the table: the
+    triangle (0-8), prob (9) and the alias triangle (10-18), then zero
+    padding, 96 bytes in all."""
+    return table.permute(0, 2, 1)
 
 
 def build_device_tables(paths, sampler, device='cpu',
@@ -186,21 +186,21 @@ def build_device_tables(paths, sampler, device='cpu',
     meta[_META_NF] = counts
     meta[_META_BASE] = base
     meta[_META_NCH] = nch
-    table = np.zeros((total, _N_ROWS_C, chunk_f), np.float32)
+    # face-major: a piece's chunks are consecutive, so its faces are
+    # consecutive records from base * chunk_f on
+    records = np.zeros((total * chunk_f, _N_ROWS_C), np.float32)
     for i, p in enumerate(paths):
         fpad = nch[i] * chunk_f
         tri9, prob, alias, _ = sampler.export_tables(p, fpad)
         # alias indices are exact f32 integers (padding aliases itself,
         # inside fpad); +0.5 guards the cast like the kernels' round
         atri = tri9[:, (alias + 0.5).astype(np.int64)]
-        for c in range(nch[i]):
-            sl = slice(c * chunk_f, (c + 1) * chunk_f)
-            table[base[i] + c, _CROW_TRI:_CROW_TRI + 9] = tri9[:, sl]
-            table[base[i] + c, _CROW_PROB] = prob[sl]
-            table[base[i] + c, _CROW_ATRI:_CROW_ATRI + 9] = atri[:, sl]
-    table = put(table)
-    return DeviceTables(table, put(meta), slot_of, chunk_f,
-                        records=chunk_records(table))
+        rec = records[base[i] * chunk_f:base[i] * chunk_f + fpad]
+        rec[:, _CROW_TRI:_CROW_TRI + 9] = tri9.T
+        rec[:, _CROW_PROB] = prob
+        rec[:, _CROW_ATRI:_CROW_ATRI + 9] = atri.T
+    records = put(records.reshape(total, chunk_f, _N_ROWS_C))
+    return DeviceTables(chunk_records(records), put(meta), slot_of, chunk_f)
 
 
 # ---------------------------------------------------------------------------
@@ -285,8 +285,8 @@ def sample_chunked_cuda(records, meta, slots, uniforms, return_draws=False):
     by `_sample_points_chunked` (:319).
 
     Args:
-        records: [total_chunks, Fc, 24] f32 CUDA, the face-major copy of
-            the chunked table (`chunk_records`);  meta: [3 + Cmax,
+        records: [total_chunks, Fc, 24] f32 CUDA, contiguous: the chunked
+            table's records (`chunk_records`);  meta: [3 + Cmax,
             n_pieces] int32;  slots, uniforms: as `sample_dense_cuda`
 
     Returns:
@@ -399,39 +399,30 @@ def sample_packed_ref(table, n_faces, slots, uniforms, return_draws=False):
     return fn(table, n_faces, slots, uniforms, return_draws=return_draws)
 
 
-def _sample_points(table, n_faces, slots, uniforms, return_draws=False,
-                   records=None):
+def _sample_points(table, n_faces, slots, uniforms, return_draws=False):
     """[K] slots + [K, 3, N] uniforms -> [K, N, 3] f32 (JAX
     device_sampler.py:357-392): the kernel of the table's layout on a CUDA
     tensor, its plain version on a CPU tensor.  The chunked layout draws
-    from `records` (`chunk_records(table)`, which its kernel needs) when
-    they are given, else, on the CPU only, from the table itself."""
-    chunked = table.shape[1] == _N_ROWS_C
-    if chunked and records is not None:
-        fn = sample_records_plain if records.device.type == 'cpu' \
-            else sample_chunked_cuda
-        return fn(records, n_faces, slots, uniforms,
-                  return_draws=return_draws)
-    if table.device.type == 'cpu':
-        return sample_packed_ref(table, n_faces, slots, uniforms,
-                                 return_draws=return_draws)
-    if chunked:
-        raise ValueError('records: the chunked kernel reads the face-major '
-                         'records (chunk_records(table)), got None')
-    return sample_dense_cuda(table, n_faces, slots, uniforms,
-                             return_draws=return_draws)
+    from the table's records (`chunk_records`)."""
+    cpu = table.device.type == 'cpu'
+    if table.shape[1] == _N_ROWS_C:
+        fn = sample_records_plain if cpu else sample_chunked_cuda
+        table = chunk_records(table)
+    else:
+        fn = sample_dense_plain if cpu else sample_dense_cuda
+    return fn(table, n_faces, slots, uniforms, return_draws=return_draws)
 
 
-def sample_packed(table, n_faces, slots, generator, n_points, records=None):
+def sample_packed(table, n_faces, slots, generator, n_points):
     """Draw [K, n_points, 3] area-weighted surface samples on the table's
     device (JAX device_sampler.py:395-401)."""
     uniforms = torch.rand((slots.shape[0], 3, n_points), generator=generator,
                           device=table.device)
-    return _sample_points(table, n_faces, slots, uniforms, records=records)
+    return _sample_points(table, n_faces, slots, uniforms)
 
 
 def sample_and_expand(table, n_faces, slots, counts, seed, n_points,
-                      max_parts, data_keys, records=None):
+                      max_parts, data_keys):
     """Slot wire -> full dense batch on the table's device (JAX
     device_sampler.py:464-478): sample with a generator seeded from
     (_BASE_KEY, seed), then the expansion of `expand_geometry_batch`.
@@ -439,11 +430,9 @@ def sample_and_expand(table, n_faces, slots, counts, seed, n_points,
     Args:
         slots: [K] int32 and counts: [B] int32, on the table's device
         seed: the batch's `sample_seed` (a Python int)
-        records: the chunked layout's records (`DeviceTables.records`)
     """
     generator = torch.Generator(device=table.device)
     generator.manual_seed((_BASE_KEY << 32) | (int(seed) & 0xffffffff))
-    packed = sample_packed(table, n_faces, slots, generator, n_points,
-                           records=records)
+    packed = sample_packed(table, n_faces, slots, generator, n_points)
     return expand_geometry_batch(packed, counts, max_parts=max_parts,
                                  data_keys=data_keys)

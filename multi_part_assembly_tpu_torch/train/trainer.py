@@ -124,8 +124,7 @@ class Trainer:
                 dev['part_counts'], seed,
                 n_points=int(self.cfg.data.num_pc_points),
                 max_parts=int(self.cfg.data.max_num_part),
-                data_keys=tuple(self.cfg.data.data_keys),
-                records=tables.records)
+                data_keys=tuple(self.cfg.data.data_keys))
         else:
             batch = _to_device(batch, self.device)
         aug = augment_geometry_batch(

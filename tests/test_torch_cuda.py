@@ -384,14 +384,15 @@ def test_sampler_kernels_match_plain(cuda, tmp_path, layout):
     tables = _soup_tables(tmp_path, layout, cuda)
     slots, u = _sampler_inputs(cuda)
     kern = TDS._sample_points(tables.table, tables.n_faces, slots, u,
-                              return_draws=True, records=tables.records)
+                              return_draws=True)
     plains = [TDS.sample_packed_ref(tables.table, tables.n_faces, slots, u,
                                     return_draws=True),
               TDS.sample_packed_ref(tables.table.cpu(), tables.n_faces.cpu(),
                                     slots.cpu(), u.cpu(), return_draws=True)]
     if layout == 'chunked':
         plains.append(TDS.sample_records_plain(
-            tables.records, tables.n_faces, slots, u, return_draws=True))
+            TDS.chunk_records(tables.table), tables.n_faces, slots, u,
+            return_draws=True))
     for plain in plains:
         for k, p in zip(kern, plain):
             assert torch.equal(k.cpu(), p.cpu())
@@ -404,18 +405,19 @@ def test_sampler_layouts_agree_and_count(cuda, tmp_path):
     slots, u = _sampler_inputs(cuda, seed=1)
     TDS.reset_launches()
     pd = TDS._sample_points(dense.table, dense.n_faces, slots, u)
-    pc = TDS._sample_points(chunk.table, chunk.n_faces, slots, u,
-                            records=chunk.records)
+    pc = TDS._sample_points(chunk.table, chunk.n_faces, slots, u)
     assert torch.equal(pd, pc)
     assert TDS.LAUNCHES == {'sample_dense': 1, 'sample_chunked': 1}
     with pytest.raises(ValueError, match='uniforms'):
         TDS.sample_dense_cuda(dense.table, dense.n_faces, slots, u[:, :2])
-    with pytest.raises(ValueError, match='records'):
-        TDS._sample_points(chunk.table, chunk.n_faces, slots, u)
+    # a chunked table in the JAX layout (not a view of records) raises
+    # rather than being copied each call
+    with pytest.raises(ValueError, match='records: expected a contiguous'):
+        TDS._sample_points(chunk.table.contiguous(), chunk.n_faces, slots, u)
     with pytest.raises(ValueError, match='records: expected shape'):
         TDS.sample_chunked_cuda(chunk.table, chunk.n_faces, slots, u)
     # a slot outside [0, n_pieces) gives NaN points, not another piece's
     bad = torch.full_like(slots, 4)
-    assert torch.isnan(TDS.sample_chunked_cuda(chunk.records, chunk.n_faces,
-                                               bad, u)).all()
+    assert torch.isnan(TDS.sample_chunked_cuda(
+        TDS.chunk_records(chunk.table), chunk.n_faces, bad, u)).all()
     assert TDS.LAUNCHES == {'sample_dense': 1, 'sample_chunked': 2}

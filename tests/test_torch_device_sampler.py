@@ -115,11 +115,11 @@ def test_tables_match_jax(meshes, mesh_set, layout, chunk_f):
                                   np.asarray(ref.n_faces))
     assert ours.n_faces.dtype == torch.int32
     assert ours.slot_of == ref.slot_of and ours.fmax == ref.fmax
-    # the chunked layout also holds its face-major records, as many bytes
-    # as its table
-    records = 0 if layout == 'dense' else ours.table.numel() * 4
-    assert (ours.records is None) == (layout == 'dense')
-    assert ours.nbytes == ref.nbytes + records
+    assert ours.nbytes == ref.nbytes
+    # the chunked table is the view of its face-major records, stored once
+    assert ours.table.is_contiguous() == (layout == 'dense')
+    if layout == 'chunked':
+        assert tds.chunk_records(ours.table).is_contiguous()
 
 
 # (soup face counts, budget bytes, chunk width): the cases of
@@ -242,7 +242,7 @@ def test_records_match_jax_columns(meshes, mesh_set, chunk_f):
     ours, ref = _both_tables(meshes[mesh_set], layout='chunked',
                              chunk_f=chunk_f)
     table, meta = np.asarray(ref.table), np.asarray(ref.n_faces)
-    records = ours.records.numpy()
+    records = tds.chunk_records(ours.table).numpy()
     assert records.shape == (table.shape[0], chunk_f, tds._N_ROWS_C)
     flat = records.reshape(-1, tds._N_ROWS_C)
     for slot in range(meta.shape[1]):
@@ -264,7 +264,7 @@ def test_records_sampler_matches_chunked_and_jax(meshes, mesh_set,
     """The plain version of the chunked kernel (`sample_records_plain`, on
     the records) equals `sample_chunked_plain` (on the table) bit for bit,
     and the JAX chunked reference on the same uniforms; `_sample_points`
-    takes it when the records are given."""
+    takes it on a chunked table."""
     chunk_f = 128 if mesh_set == 'soups' else 512
     ours, ref = _both_tables(meshes[mesh_set], layout='chunked',
                              chunk_f=chunk_f)
@@ -273,12 +273,11 @@ def test_records_sampler_matches_chunked_and_jax(meshes, mesh_set,
         0, len(meshes[mesh_set]), K).astype(np.int32)
     u = _uniforms(K, 384, seed=6)
     args = (ours.n_faces, torch.tensor(slots), torch.tensor(u[:, :3, :n]))
-    got = tds.sample_records_plain(ours.records, *args,
+    got = tds.sample_records_plain(tds.chunk_records(ours.table), *args,
                                    return_draws=return_draws)
     want = tds.sample_chunked_plain(ours.table, *args,
                                     return_draws=return_draws)
-    via = tds._sample_points(ours.table, *args, return_draws=return_draws,
-                             records=ours.records)
+    via = tds._sample_points(ours.table, *args, return_draws=return_draws)
     if return_draws:
         (got, draws), (want, want_draws), (via, via_draws) = got, want, via
         np.testing.assert_array_equal(draws.numpy(), want_draws.numpy())
@@ -295,15 +294,16 @@ def test_records_sampler_matches_chunked_and_jax(meshes, mesh_set,
 
 def test_chunked_kernel_takes_records():
     """The chunked kernel's wrapper takes the records ([*, Fc, 24]) and
-    refuses a CPU tensor; a chunked table on the card with no records
-    raises rather than taking another path."""
+    refuses a CPU tensor; a chunked table off the CPU goes to the kernel
+    through its records, which refuses what is not a CUDA tensor, rather
+    than taking another path."""
     records = torch.zeros((2, 8, tds._N_ROWS_C))
     meta = torch.zeros((4, 1), dtype=torch.int32)
     slots = torch.zeros(1, dtype=torch.int32)
     u = torch.zeros((1, 3, 4))
     with pytest.raises(ValueError, match='records: expected a CUDA tensor'):
         tds.sample_chunked_cuda(records, meta, slots, u)
-    with pytest.raises(ValueError, match='records'):
+    with pytest.raises(ValueError, match='records: expected a CUDA tensor'):
         tds._sample_points(torch.zeros((2, tds._N_ROWS_C, 8), device='meta'),
                            meta, slots, u)
 
