@@ -9,7 +9,8 @@ Phases, each printing its own line(s); any failure exits non-zero:
   3. kernels: each chamfer kernel against its plain PyTorch version at the
      flagship shapes (B=32, P=20, N=1000), part counts drawn from the
      everyday mix: distances bit for bit, witnesses exactly, gradients
-     within a stated tolerance.  B1/B3 (one kernel, both directions a
+     bit for bit against the plain version on the CPU and within a stated
+     tolerance of it on the card.  B1/B3 (one kernel, both directions a
      launch) and B2/B4 (one kernel, both directions a launch, with dy and
      dx only) also on [20] * 8, on tie-heavy clouds (a 1/64 grid with
      duplicated points), on fully overlapping parts, on parts spread over
@@ -31,7 +32,11 @@ Phases, each printing its own line(s); any failure exits non-zero:
      triangle soups, at an everyday batch's row count and at the dense
      bound K = B*P: points bit for bit, face draws exactly, and dense equal
      to chunked; their times with the L2 flushed before each launch (the
-     kernels line's) and warm.
+     kernels line's) and warm, beside two floor probes launched on the same
+     grid: an empty kernel, and one that only reads the uniforms and writes
+     the points.  B2/B4 launched three times on each input kind, both forms,
+     with either cotangent null too: bitwise equal every time, and bitwise
+     equal to the plain version on the CPU.
      Kernel and plain times from CUDA events, each beside its bound (the
      larger of its operations over the card's peak and its bytes over the
      memory rate; the samplers' bytes counted on the run's draws); a
@@ -104,9 +109,11 @@ KERNELS = [
 FUSED_KEYS = ('nn_parts', 'nn_diag', 'bwd_parts', 'bwd_diag')
 # face counts of the ragged soup set: sub-chunk, exactly one chunk, many
 RAGGED_FACES = [37, 512, 3000, 20000]
-# B2/B4's shared-memory atomicAdds sum a witness's terms in a varying
-# order, so their gradients match the plain index_add_ only to float
-# rounding: |kernel - plain| <= GRAD_RTOL * max|plain| + GRAD_ATOL.
+# B2/B4 add a row's terms in a fixed order, the plain version's on the CPU,
+# where index_add_ adds in index order: the kernel must give its bits.  On
+# the card the plain index_add_ adds by global atomics in a varying order,
+# so there the kernel is held to |kernel - plain| <= GRAD_RTOL * max|plain|
+# + GRAD_ATOL.
 GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-6
 # B2/B4's two forms: (need_dy, label); the kernels line reports the first
 BWD_FORMS = ((True, 'with dy'), (False, 'dx only'))
@@ -136,10 +143,71 @@ def phase_device():
     torch.backends.cudnn.allow_tf32 = False
 
 
-def phase_build():
-    cuda_build.load_library()
+# Floor probes of the samplers, launched on their grid (one block of 256
+# points a row and a 256-point slice): an empty kernel, and one that reads a
+# point's three uniforms and writes them as its point (24 bytes a point, no
+# table).  What they take cold, no sampler design can remove.
+PROBE_CU = r'''
+#include <cuda_runtime.h>
+
+__global__ void probe_empty() {}
+
+__global__ void probe_uniforms(const float* __restrict__ u,
+                               float* __restrict__ out, int N) {
+  const int n = blockIdx.y * 256 + threadIdx.x;
+  if (n >= N) return;
+  const long long p = (long long)blockIdx.x * N + n;
+  const float* uk = u + p * 3 - 2 * n;
+  const float u0 = __ldg(uk), u1 = __ldg(uk + N), u2 = __ldg(uk + 2 * N);
+  out[p * 3] = u0;
+  out[p * 3 + 1] = u1;
+  out[p * 3 + 2] = u2;
+}
+
+extern "C" int probe_sampler(int mode, const float* u, float* out, int K,
+                             int N, void* stream) {
+  const dim3 grid(K, (N + 255) / 256);
+  if (mode == 0)
+    probe_empty<<<grid, 256, 0, (cudaStream_t)stream>>>();
+  else
+    probe_uniforms<<<grid, 256, 0, (cudaStream_t)stream>>>(u, out, N);
+  return (int)cudaGetLastError();
+}
+'''
+_probe_lib = None
+
+
+def phase_build(tmp):
+    """The port's kernels, with the floor probes compiled beside them."""
+    global _probe_lib
+    import ctypes
+    src, lib = os.path.join(tmp, 'probe.cu'), os.path.join(tmp, 'probe.so')
+    with open(src, 'w') as f:
+        f.write(PROBE_CU)
+    probe = subprocess.Popen(
+        [cuda_build._nvcc(), '-shared', *cuda_build.NVCC_FLAGS, src, '-o',
+         lib], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        cuda_build.load_library()
+        _, err = probe.communicate(timeout=600)
+    finally:
+        probe.kill()
+    if probe.returncode != 0:
+        raise RuntimeError(f'nvcc failed on the floor probes:\n{err}')
+    _probe_lib = ctypes.CDLL(lib)
+    _probe_lib.probe_sampler.restype = ctypes.c_int
+    _probe_lib.probe_sampler.argtypes = [ctypes.c_int] + \
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     print(f'build: {cuda_build.build_seconds():.2f} s '
           f'(nvcc {" ".join(cuda_build.NVCC_FLAGS)})', flush=True)
+
+
+def _probe(mode, u, out):
+    rc = _probe_lib.probe_sampler(mode, u.data_ptr(), out.data_ptr(),
+                                  u.shape[0], u.shape[-1],
+                                  torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f'probe_sampler: CUDA error {rc}')
 
 
 def _cuda_ms(fn, iters):
@@ -330,24 +398,47 @@ def _check_pair(counts, seed, diagonal, timed, kind='everyday'):
         return lambda: grad(x, y, n_parts, w1p, w2p, g1, g2, diagonal,
                             need_dy)
 
+    def bits(t):
+        return None if t is None else t.view(torch.int32)
+
     bwd_err = {}
     for need_dy, form in BWD_FORMS:
         kern_g = bwd(C.chamfer_grad_cuda, need_dy)()
         plain_g = bwd(C.chamfer_grad_plain, need_dy)()
+        cpu_args = [a.cpu() if isinstance(a, torch.Tensor) else a for a in
+                    (x, y, n_parts, w1p, w2p, g1, g2, diagonal, need_dy)]
+        cpu_g = C.chamfer_grad_plain(*cpu_args)
+        # three launches a cotangent pattern, either cotangent null too:
+        # the same bits every time
+        repeats = compared = 0
+        for c1, c2 in ((g1, g2), (None, g2), (g1, None)):
+            runs = [C.chamfer_grad_cuda(x, y, n_parts, w1p, w2p, c1, c2,
+                                        diagonal, need_dy) for _ in range(3)]
+            for run in runs[1:]:
+                same = [torch.equal(bits(k), bits(f))
+                        for k, f in zip(run, runs[0]) if f is not None]
+                repeats += same.count(False)
+                compared += len(same)
         torch.cuda.synchronize()
-        outs = [(k, p) for k, p in zip(kern_g, plain_g) if p is not None]
-        err = bwd_err[need_dy] = max(float((k - p).abs().max())
-                                     for k, p in outs)
-        tol = GRAD_RTOL * max(float(p.abs().max()) for _, p in outs) + \
+        outs = [(k, p, c) for k, p, c in zip(kern_g, plain_g, cpu_g)
+                if p is not None]
+        err = max(float((k - p).abs().max()) for k, p, _ in outs)
+        cpu_err = bwd_err[need_dy] = max(float((k.cpu() - c).abs().max())
+                                         for k, _, c in outs)
+        tol = GRAD_RTOL * max(float(p.abs().max()) for _, p, _ in outs) + \
             GRAD_ATOL
-        pad_nonzero = sum(int((k[pad] != 0).sum()) for k, _ in outs)
+        pad_nonzero = sum(int((k[pad] != 0).sum()) for k, _, _ in outs)
         print(f'kernels: chamfer_grad[{mode}] {form} {tag}: max|grad kernel '
-              f'- grad plain| = {err:.3e} (tolerance {tol:.3e}), nonzero '
-              f'gradients at padded parts = {pad_nonzero}', flush=True)
-        if not err <= tol or pad_nonzero or \
+              f'- grad plain on the CPU| = {cpu_err:.3e} (bitwise required), '
+              f'on the card = {err:.3e} (tolerance {tol:.3e}); repeat '
+              f'launches differing from the first = {repeats} of {compared} '
+              f'(bitwise required); nonzero gradients at padded parts = '
+              f'{pad_nonzero}', flush=True)
+        if cpu_err != 0.0 or not err <= tol or repeats or pad_nonzero or \
                 (kern_g[1] is None) == need_dy:
             raise AssertionError(f'chamfer_grad[{mode}] {form} {kind} '
-                                 'disagrees with its plain version')
+                                 'disagrees with its plain version or '
+                                 'between launches')
     if not timed:
         return None
 
@@ -593,15 +684,15 @@ def _write_soups(folder):
 
 def _sampler_fns(layout, t):
     """(kernel, plain version) of a layout, each a function of (slots, u)
-    on the inputs the kernel takes: the dense table, or the chunked
-    table's face-major records."""
+    on the inputs the kernel takes: the table's face-major records."""
+    records = DS.table_records(t.table)
     if layout == 'chunked':
-        records = DS.chunk_records(t.table)
         return (lambda s, u: DS.sample_chunked_cuda(records, t.n_faces, s, u),
                 lambda s, u: DS.sample_records_plain(records, t.n_faces, s,
                                                      u))
-    return (lambda s, u: DS.sample_dense_cuda(t.table, t.n_faces, s, u),
-            lambda s, u: DS.sample_dense_plain(t.table, t.n_faces, s, u))
+    return (lambda s, u: DS.sample_dense_cuda(records, t.n_faces, s, u),
+            lambda s, u: DS.sample_dense_records_plain(records, t.n_faces, s,
+                                                       u))
 
 
 def _distinct(slots, idx, mask=None):
@@ -627,29 +718,30 @@ def _sampler_bytes(layout, t, slots, u, draws):
     nbytes = 24 * K * n + 4 * K + (4 if dense else 8) * pieces + \
         4 * _distinct(slots, f0) + 36 * _distinct(slots, draws)
     if dense:
-        prob = t.table[slots.long()[:, None], DS._ROW_PROB, f0]
+        prob = DS.jax_table(t.table)[slots.long()[:, None], DS._ROW_PROB,
+                                     f0]
         nbytes += 4 * _distinct(slots, f0, frac >= prob)
     return nbytes
 
 
 def _check_sampler(name, tables, slots, seed):
     """Both sampling kernels against their plain versions on one slot
-    array (the chunked kernel also against the plain version on the table
-    itself), and dense against chunked, then their times, cold (the
-    kernels line's) and warm; returns {layout: (err, kernel ms, plain ms,
-    bound ms, bound by)}."""
+    array (on the records, the kernels' inputs, and on the table itself),
+    and dense against chunked, then their times, cold (the kernels line's)
+    and warm, and the floor probes'; returns {layout: (err, kernel ms,
+    plain ms, bound ms, bound by)}."""
     g = torch.Generator(device='cuda').manual_seed(seed)
     u = torch.rand((slots.shape[0], 3, N), generator=g, device='cuda')
     out, tag = {}, f'{name} K={slots.shape[0]} N={N}'
     for layout, t in tables.items():
         pk, dk = DS._sample_points(t.table, t.n_faces, slots, u,
                                    return_draws=True)
-        plains = [DS.sample_packed_ref(t.table, t.n_faces, slots, u,
-                                       return_draws=True)]
-        if layout == 'chunked':
-            plains.append(DS.sample_records_plain(
-                DS.chunk_records(t.table), t.n_faces, slots, u,
-                return_draws=True))
+        records_plain = DS.sample_records_plain if layout == 'chunked' \
+            else DS.sample_dense_records_plain
+        plains = [DS.sample_packed_ref(DS.jax_table(t.table), t.n_faces,
+                                       slots, u, return_draws=True),
+                  records_plain(DS.table_records(t.table), t.n_faces, slots,
+                                u, return_draws=True)]
         torch.cuda.synchronize()
         err = max(float((pk - pp).abs().max()) for pp, _ in plains)
         mismatches = sum(int((dk != dp).sum()) for _, dp in plains)
@@ -657,9 +749,8 @@ def _check_sampler(name, tables, slots, seed):
         out[layout] = [err, pk, dk]
         print(f'kernels: sample_{layout} {tag}: max|p kernel - p plain| = '
               f'{err:.3e} (bitwise required), draw mismatches = '
-              f'{mismatches}' + (' (plain versions on the table and on the '
-                                 'records)' if len(plains) > 1 else ''),
-              flush=True)
+              f'{mismatches} (plain versions on the table and on the '
+              'records)', flush=True)
         if err != 0.0 or mismatches != 0 or not finite:
             raise AssertionError(f'sample_{layout} disagrees with its plain '
                                  f'version on {tag}')
@@ -667,7 +758,8 @@ def _check_sampler(name, tables, slots, seed):
     # a chunked draw that took the alias triangle names f0 (as -1 - f0):
     # resolve it through the dense table's alias row
     f0 = torch.where(fc < 0, -1 - fc, fc).long()
-    alias = tables['dense'].table[slots.long()[:, None], DS._ROW_ALIAS, f0]
+    alias = DS.jax_table(tables['dense'].table)[slots.long()[:, None],
+                                                DS._ROW_ALIAS, f0]
     resolved = torch.where(fc < 0, (alias + 0.5).to(torch.int32), fc)
     same_faces = int((resolved != fd).sum())
     print(f'kernels: dense vs chunked {tag}: points bitwise equal '
@@ -676,6 +768,17 @@ def _check_sampler(name, tables, slots, seed):
           flush=True)
     if not torch.equal(pd, pc) or same_faces:
         raise AssertionError(f'dense and chunked kernels disagree on {tag}')
+    probe_out = torch.empty((slots.shape[0], N, 3), device='cuda')
+    _probe(1, u, probe_out)
+    if not torch.equal(probe_out, u.transpose(1, 2)):
+        raise AssertionError('probe_uniforms: points are not the uniforms')
+    empty_ms = _cold_ms(lambda: _probe(0, u, probe_out), 100)
+    copy_ms = _cold_ms(lambda: _probe(1, u, probe_out), 100)
+    copy_warm = _cuda_ms(lambda: _probe(1, u, probe_out), 100)
+    print(f'kernels: sampler floor probes {tag}, on the samplers\' grid, '
+          f'cold: empty kernel {empty_ms:.4f} ms, uniforms read and points '
+          f'written (24 bytes a point, no table) {copy_ms:.4f} ms '
+          f'({copy_warm:.4f} ms warm)', flush=True)
     result = {}
     for layout, t in tables.items():
         kern, plain = _sampler_fns(layout, t)
@@ -721,10 +824,11 @@ def phase_sampler(data_dir, tmp):
             print(f'kernels: {name} {layout} tables of {len(paths)} pieces '
                   f'built in {time.perf_counter() - t0:.2f} s, '
                   f'{tables[layout].nbytes} bytes in all', flush=True)
-        records = DS.chunk_records(tables['chunked'].table)
-        print(f'kernels: {name} chunked records (the chunked table, stored '
-              f'face-major; built above): {records.numel() * 4} bytes, '
-              f'contiguous {records.is_contiguous()}', flush=True)
+        for layout, t in tables.items():
+            records = DS.table_records(t.table)
+            print(f'kernels: {name} {layout} records (the table, stored '
+                  f'face-major; built above): {records.numel() * 4} bytes, '
+                  f'contiguous {records.is_contiguous()}', flush=True)
         if name == 'everyday':  # the slots of one real batch
             ds._device_tables = tables['dense']
             order = rng.permutation(len(ds))[:B].tolist()
@@ -1023,8 +1127,8 @@ def phase_main(data_dir, tmp):
 
 def main():
     phase_device()
-    phase_build()
     with tempfile.TemporaryDirectory() as tmp:
+        phase_build(tmp)
         os.environ['MPA_MESH_CACHE_DIR'] = os.path.join(tmp, 'mesh_cache')
         data_dir = os.path.join(tmp, 'everyday')
         n_pieces = _make_everyday_set(data_dir)

@@ -72,19 +72,24 @@
 //     read-modify-write in device memory; a block of a padded part writes
 //     its zeros and exits.  Its cross terms come from a walk over the
 //     witnesses that can point into its part, both directions in the same
-//     rounds (16-byte loads, the next round in flight), and shared-memory
-//     atomics: the TPU kernel's structure (one grid step owns one shape's
-//     dx and dy, both directions).  What bounds it in practice is latency:
-//     a block is a chain of dependent loads, so each step issues all its
-//     loads together (128 registers a thread, two blocks an SM), and the
-//     walk's first round is in flight while the own terms are gathered.  In
-//     the whole-shape mode, where about one witness in n_p matches, a warp
-//     queues its matches in shared memory and gathers them 64 at a time; in
-//     the diagonal mode nearly every witness matches, and a source's
-//     cotangent and point load with its witness.  A shared-memory float
-//     atomicAdd is a compare-and-swap loop on sm_90a, which lanes on one
-//     address run in turn, so a warp first sums its terms of equal witness
-//     (__match_any_sync and a shuffle tree).
+//     rounds (16-byte loads, the next round in flight): the TPU kernel's
+//     structure (one grid step owns one shape's dx and dy, both
+//     directions).  What bounds it in practice is latency: a block is a
+//     chain of dependent loads and barriers, so each step issues all its
+//     loads together, and the walk's first round is in flight while the own
+//     terms are gathered.  The order of each row's sum is fixed, so that
+//     the same inputs give the same bits on every launch, as the TPU's
+//     sequential grid does: the matches of a round sit in source order
+//     (whole shape, where about one witness in n_p matches: a block-wide
+//     prefix count places them in a queue in shared memory; diagonal,
+//     where nearly every witness matches: as the threads hold them), a
+//     bucket of 1024 of them is sorted by owned row with a stable
+//     block radix sort (two passes of 5 bits), and one owner thread a row
+//     adds its matches in order.  The cost is the sort and a few barriers
+//     a bucket, one or two buckets a direction a block on the everyday
+//     clouds; a row that many witnesses share (a collapsed cloud) is one
+//     thread's chain of additions.  A count-and-scatter grouping for
+//     buckets whose rows take few matches was tried and was slower.
 //
 // Numerics: the distance is (dx*dx + dy*dy) + dz*dz with every operation
 // rounded on its own (__fmul_rn / __fadd_rn cannot be contracted into an
@@ -95,15 +100,18 @@
 // (ops/chamfer.py:530-549) and torch.min's.  B1/B3 get it from the order of
 // packed keys, B7/B8 from a strict '<' while walking targets in ascending
 // order.  B2/B4 form each gradient term as the plain version does,
-// __fmul_rn(2 g, __fsub_rn(q, t)), but sum the terms that share a witness
-// by shared-memory atomics in a varying order: their gradients agree with
-// the plain index_add_ to GRAD_RTOL * max|plain| + GRAD_ATOL (1e-5, 1e-6),
-// not bit for bit.
+// __fmul_rn(2 g, __fsub_rn(q, t)), and add a row's terms in the plain
+// version's order (its own term, then its sources in ascending order), one
+// rounded addition at a time: the same bits on every launch, and the bits
+// of the plain version wherever its index_add_ adds in index order, as it
+// does on the CPU.
 
+#include <cub/block/block_radix_sort.cuh>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include <algorithm>
+#include <atomic>
 #include <type_traits>
 
 namespace {
@@ -701,14 +709,28 @@ constexpr int kGradThreads = 256;
 // blocks at 64 registers)
 constexpr int kGradBlocksPerSM = 2;
 // owned points a block at most: the dx and dy accumulators ([C, 3] f32,
-// each padded to a 16-byte phase) and either the staged owned points
-// (diagonal) or the match queues (whole shape) fit the 48 KB of shared
-// memory a launch gets without an opt-in
+// each padded to a 16-byte phase), the staged owned points, the match
+// queues (whole shape) and the buckets fit two blocks an SM (grad_smem: at
+// most about 104 KB a block)
 constexpr int kGradChunk = 1020;
 constexpr int kOwnPer = (kGradChunk + kGradThreads - 1) / kGradThreads;
-constexpr int kWalkSegs = 4;  // whole shape: witness segments a thread a round
-constexpr int kQueue = 256;   // whole shape: matches a warp queues
-constexpr int kGather = 2;    // queued matches a lane gathers at once
+// The cross terms reach their owned rows through buckets: kBucket matches
+// at a time (kBucketItems a thread) are sorted by owned row, stably, and
+// one owner thread a row adds its matches in source order.
+constexpr int kBucketItems = 4;
+constexpr int kBucket = kGradThreads * kBucketItems;
+constexpr int kWalkSegs = 2;  // whole shape: witness segments a thread a round
+// sort keys: (owned row << kSlotBits) | slot in the bucket, sorted on the
+// row's bits alone, two passes of 5 bits
+constexpr int kSlotBits = 10;
+constexpr int kRowBits = 10;
+constexpr unsigned kNoRow = (1u << kRowBits) - 1;  // the row of a non-match
+constexpr int kRowSlots = 1 << kRowBits;
+static_assert(kGradChunk < (int)kNoRow, "owned rows must sort below kNoRow");
+static_assert(kBucket == 1 << kSlotBits, "a slot fills the low key bits");
+constexpr int kGradWarps = kGradThreads / 32;
+using RowSort = cub::BlockRadixSort<unsigned, kGradThreads, kBucketItems,
+                                    cub::NullType, 5>;
 
 // Floats of one accumulator of the grad kernel: 3 * C, plus up to 3 of
 // phase, rounded up to 16 bytes.
@@ -741,8 +763,8 @@ __device__ __forceinline__ void store_rows(float* __restrict__ g,
 // One direction's own terms: the owned points own, their witnesses w and
 // cotangents g (each offset to the chunk's first point; g null when the
 // direction has no cotangent), the other cloud's points other (offset to
-// the shape), the accumulator acc, and stage (null, or where the owned
-// points are copied for the diagonal walk).
+// the shape), the accumulator acc, and stage, where the owned points are
+// copied for the cross terms.
 struct OwnDir {
   float* acc;
   float* stage;
@@ -800,42 +822,104 @@ __device__ __forceinline__ void own_terms(const OwnDir (&d)[2], int cnt) {
   }
 }
 
-// Adds the term t to row[0..2] for every lane of the warp whose m is set.
-// Lanes with the same key (the same owned row) first sum their terms by a
-// shuffle tree over the peers that __match_any_sync finds, and one lane of
-// each group does the atomicAdd: a float atomicAdd on shared memory is a
-// compare-and-swap loop on sm_90a, which lanes on one address would run
-// one after another.  Every lane of the warp calls it.
-__device__ __forceinline__ void add_by_witness(float* row, bool m,
-                                               unsigned key, float (&t)[3]) {
-  const unsigned act = __ballot_sync(0xffffffffu, m);
-  if (!m) return;
-  const int lane = threadIdx.x & 31;
-  const unsigned peers = __match_any_sync(act, key);
-  unsigned rank = __popc(peers & ((1u << lane) - 1u));  // among the peers
-  unsigned above = peers & (0xfffffffeu << lane);       // peers above lane
-  while (__any_sync(act, above)) {
-    const int next = __ffs(above);  // 1 + the next peer above, or 0
-    float o[3];
+// Shared memory of the buckets: the staged terms of one bucket, by slot,
+// its slots sorted by row (src; key: the sorted rows), each row's span of
+// sorted slots [start, end) (end is 0 between buckets), the warps' partial
+// sums of the walk's block scans (two sets, used in turn), and the sort's
+// scratch.
+struct Buckets {
+  float* term;            // [kBucket][3]
+  unsigned short* key;    // [kBucket]
+  unsigned short* src;    // [kBucket]
+  unsigned short* start;  // [kRowSlots]
+  unsigned short* end;    // [kRowSlots]
+  int* wsum;              // [2][kGradWarps]
+  RowSort::TempStorage* sort;
+};
+
+// Adds to each owned row i < cnt of acc the terms of the items keyed i, in
+// source order: item e of thread t is the source kBucketItems * t + e of a
+// stretch walked in ascending order (a non-match is keyed kNoRow), and its
+// term is staged at bk.term[3 * slot], slot = kBucketItems * t + e, before
+// the call.  A stable sort by row groups the slots, and one owner
+// thread a row adds its group in order, so that a row's gradient is its
+// own term followed by its sources' terms in ascending order of source, the
+// order in which the plain version's index_add_ adds them, whatever the
+// timing of the warps.  Every thread of the block calls it; it ends with a
+// barrier, after which the buckets' memory may be reused.
+__device__ __forceinline__ void bucket_add(float* acc,
+                                           const unsigned (&row)[kBucketItems],
+                                           int cnt, const Buckets& bk) {
+  unsigned key[kBucketItems];
 #pragma unroll
-    for (int c = 0; c < 3; ++c)
-      o[c] = __shfl_sync(act, t[c], (next - 1) & 31);
-    if (next) {
+  for (int e = 0; e < kBucketItems; ++e)
+    key[e] = row[e] << kSlotBits | (threadIdx.x * kBucketItems + e);
+  RowSort(*bk.sort).Sort(key, kSlotBits, kSlotBits + kRowBits);
 #pragma unroll
-      for (int c = 0; c < 3; ++c) t[c] = __fadd_rn(t[c], o[c]);
+  for (int e = 0; e < kBucketItems; ++e) {
+    const int s = threadIdx.x * kBucketItems + e;
+    bk.key[s] = (unsigned short)(key[e] >> kSlotBits);
+    bk.src[s] = (unsigned short)(key[e] & (kBucket - 1));
+  }
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < kBucketItems; ++e) {
+    const int s = threadIdx.x * kBucketItems + e;
+    const unsigned k = key[e] >> kSlotBits;
+    if (k == kNoRow) continue;
+    if (s == 0 || bk.key[s - 1] != k) bk.start[k] = (unsigned short)s;
+    if (s == kBucket - 1 || bk.key[s + 1] != k)
+      bk.end[k] = (unsigned short)(s + 1);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int m = 0; m < kOwnPer; ++m) {
+    const int i = threadIdx.x + m * kGradThreads;
+    if (i >= cnt) continue;
+    const int stop = bk.end[i];
+    if (stop == 0) continue;
+    float a[3] = {acc[3 * i], acc[3 * i + 1], acc[3 * i + 2]};
+#pragma unroll 4
+    for (int s = bk.start[i]; s < stop; ++s) {
+      const float* ts = bk.term + 3 * bk.src[s];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) a[c] = __fadd_rn(a[c], ts[c]);
     }
-    above &= __ballot_sync(act, !(rank & 1));  // drop the peers just summed
-    rank >>= 1;
-  }
-  if (lane == __ffs(peers) - 1) {
 #pragma unroll
-    for (int c = 0; c < 3; ++c) atomicAdd(row + c, t[c]);
+    for (int c = 0; c < 3; ++c) acc[3 * i + c] = a[c];
+    bk.end[i] = 0;
   }
+  __syncthreads();
+}
+
+// The exclusive prefix sum of v over the block's threads, in thread order,
+// and the block's total, through the warp sums ws[kGradWarps].  Every
+// thread calls it; a caller that calls again without a barrier between
+// passes another ws.
+__device__ __forceinline__ int block_exclusive(int v, int* ws, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) ws[warp] = x;
+  __syncthreads();
+  int before = 0;
+  total = 0;
+#pragma unroll
+  for (int w = 0; w < kGradWarps; ++w) {
+    const int sw = ws[w];
+    before += w < warp ? sw : 0;
+    total += sw;
+  }
+  return before + x - v;
 }
 
 // One direction of the cross terms: sources with witnesses w, cotangents g
 // and points pts (each offset to source 0), and the owned rows' points own
-// (shared or device memory) and accumulator acc (shared memory).  A source
+// (staged) and accumulator acc, both in shared memory.  A source
 // q whose witness is owned point i adds 2 g_q (own_i - pts_q) to acc[3 i].
 struct GradDir {
   const int* w;
@@ -862,17 +946,20 @@ struct Segments {
   }
 };
 
+static_assert(kBucketItems == 4, "a thread's bucket items are one segment");
+
 // The cross terms of kDirs directions over sources [0, n) whose witness
-// lies in the owned chunk [lo, lo + cnt), i = w_q - lo.  The directions
-// are walked in the same rounds, so that asking for dy adds loads to a
-// round and no round, and the first round is loaded before the own terms
-// (Walk::first), so that its latency hides behind theirs.  Rounds are
-// uniform over each warp.
+// lies in the owned chunk [lo, lo + cnt), i = w_q - lo.  The walk goes in
+// rounds of kGradThreads segments a direction, thread t taking segment
+// base + t, so that the block's items are in source order; the first round
+// is loaded before the own terms (Walk::first), so that its latency hides
+// behind theirs.
 //
 // Diagonal mode (DirectWalk): nearly every source matches, and a source's
 // cotangent and point do not depend on its witness, so a round loads them
-// with the witnesses, one segment a thread a direction; the owned points
-// come from shared memory.
+// with the witnesses, forms its terms (the owned points come from shared
+// memory) and hands them to the buckets as they stand: a round is a
+// bucket.
 template <int kDirs>
 struct DirectWalk {
   Segments seg[kDirs];
@@ -906,27 +993,6 @@ struct DirectWalk {
     }
   }
 
-  __device__ __forceinline__ void add(const GradDir (&d)[2], unsigned lo,
-                                      unsigned cnt) {
-#pragma unroll
-    for (int r = 0; r < kDirs; ++r) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        int q;
-        const unsigned i = (unsigned)v[r][e] - lo;  // -1, out: >= cnt
-        const bool m = in(r, e, q) && i < cnt;
-        float t[3] = {0.0f, 0.0f, 0.0f};
-        if (m) {
-#pragma unroll
-          for (int k = 0; k < 3; ++k)
-            t[k] = __fmul_rn(gg[r][e],
-                             __fsub_rn(d[r].own[3 * i + k], c[r][e][k]));
-        }
-        add_by_witness(d[r].acc + 3 * i, m, i, t);
-      }
-    }
-  }
-
   __device__ __forceinline__ void first(const GradDir (&d)[2], int n_src) {
     n = n_src;
 #pragma unroll
@@ -936,117 +1002,190 @@ struct DirectWalk {
   }
 
   __device__ __forceinline__ void rest(const GradDir (&d)[2], unsigned lo,
-                                       unsigned cnt, int2*) {
-    const int warp0 = threadIdx.x & ~31;
-    for (int base = 0; base + warp0 < n4; base += kGradThreads) {
+                                       unsigned cnt, int2*,
+                                       const Buckets& bk) {
+    for (int base = 0; base < n4; base += kGradThreads) {
       if (base) load(d, base);
-      add(d, lo, cnt);
+      unsigned key[kDirs][4];
+      float t[kDirs][4][3];
+      int any = 0;
+#pragma unroll
+      for (int r = 0; r < kDirs; ++r) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          int q;
+          const unsigned i = (unsigned)v[r][e] - lo;  // -1, out: >= cnt
+          const bool m = in(r, e, q) && i < cnt;
+          key[r][e] = m ? i : kNoRow;
+          any |= m << r;
+#pragma unroll
+          for (int k = 0; k < 3; ++k) t[r][e][k] = 0.0f;
+          if (m) {
+#pragma unroll
+            for (int k = 0; k < 3; ++k)
+              t[r][e][k] = __fmul_rn(gg[r][e],
+                                     __fsub_rn(d[r].own[3 * i + k], c[r][e][k]));
+          }
+        }
+      }
+      // a direction with no match in the block skips its bucket
+#pragma unroll
+      for (int r = 0; r < kDirs; ++r) {
+        if (!__syncthreads_or(any >> r & 1)) continue;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int slot = threadIdx.x * 4 + e;
+#pragma unroll
+          for (int k = 0; k < 3; ++k) bk.term[3 * slot + k] = t[r][e][k];
+        }
+        bucket_add(d[r].acc, key[r], cnt, bk);
+      }
     }
   }
 };
 
-// Whole-shape mode (QueuedWalk): about one witness in n_p matches.
-// kWalkSegs segments a thread a round over both directions, the next
-// round's in flight while this one is scanned; the matches go to the
-// warp's queue in shared memory (kQueue entries of (q, i | direction <<
-// 31)), which is gathered 32 * kGather entries at a time (cotangent,
-// point and owned point of each, all loads issued together) when it could
-// overflow, and at the end, so that a warp waits on a gather only for
-// full batches.
+// Whole-shape mode (QueuedWalk): about one witness in n_p matches.  A
+// round gives each thread kSegs segments a direction (kWalkSegs over both),
+// the next round's in flight while one is scanned.  Its matches go, in
+// source order, to the direction's queue in shared memory (positions by a
+// block-wide prefix count of the threads' matches); a full queue, and the
+// last one, is a bucket: its entries' cotangents and points are loaded
+// (all of a thread's together) and their terms staged.  A round with more
+// matches than the queue holds fills it, flushes it and goes on, so that
+// buckets follow source order.  (Loading a match's cotangent and point as
+// soon as it is found, and queueing its term, was slower: it lengthens
+// every round.)
 template <int kDirs>
 struct QueuedWalk {
   static constexpr int kSegs = kWalkSegs / kDirs;  // a direction's a round
+  static constexpr int kSpan = kSegs * kGradThreads;  // segments a round
+  static_assert(kDirs * kSegs <= 2, "a round's counts fill two 16-bit fields");
   Segments seg[kDirs];
   int n, n4;
   int4 cur[kDirs][kSegs];
+
+  // This thread's segment u of the round that starts at segment base: a
+  // round's segments u lie over the threads in turn, so that a warp's
+  // 16-byte loads are contiguous.
+  __device__ __forceinline__ int segment(int base, int u) const {
+    return base + u * kGradThreads + threadIdx.x;
+  }
+
+  __device__ __forceinline__ void load(int4 (&v)[kDirs][kSegs], int base) {
+#pragma unroll
+    for (int r = 0; r < kDirs; ++r)
+#pragma unroll
+      for (int u = 0; u < kSegs; ++u) v[r][u] = seg[r].load(segment(base, u));
+  }
 
   __device__ __forceinline__ void first(const GradDir (&d)[2], int n_src) {
     n = n_src;
 #pragma unroll
     for (int r = 0; r < kDirs; ++r) seg[r] = Segments(d[r].w, n);
     n4 = max(seg[0].n4, seg[kDirs - 1].n4);
-#pragma unroll
-    for (int r = 0; r < kDirs; ++r)
-#pragma unroll
-      for (int u = 0; u < kSegs; ++u)
-        cur[r][u] = seg[r].load(threadIdx.x + u * kGradThreads);
+    load(cur, 0);
   }
 
-  __device__ __forceinline__ void flush(const GradDir (&d)[2], int nq,
-                                        const int2* queue) {
-    const int lane = threadIdx.x & 31;
-    __syncwarp();
-    for (int b0 = 0; b0 < nq; b0 += 32 * kGather) {
-      bool m[kGather];
-      unsigned key[kGather];
-      float gg[kGather], c[kGather][3], o[kGather][3];
+  __device__ __forceinline__ void flush(const GradDir& d, int nq,
+                                        const int2* queue, unsigned cnt,
+                                        const Buckets& bk) {
+    __syncthreads();  // the queue's entries are written
+    unsigned row[4];
+    float gg[4], c[4][3];
 #pragma unroll
-      for (int k = 0; k < kGather; ++k) {
-        const int e = b0 + 32 * k + lane;
-        m[k] = e < nq;
-        const int2 qk = m[k] ? queue[e] : make_int2(0, 0);
-        key[k] = (unsigned)qk.y;
-        const bool second = kDirs > 1 && (key[k] >> 31);
-        const float* g = second ? d[kDirs - 1].g : d[0].g;
-        const float* pts = second ? d[kDirs - 1].pts : d[0].pts;
-        const float* own = second ? d[kDirs - 1].own : d[0].own;
-        const unsigned i = key[k] & 0x7fffffffu;
-        gg[k] = m[k] ? __fmul_rn(2.0f, __ldg(g + qk.x)) : 0.0f;
+    for (int e = 0; e < 4; ++e) {
+      const int slot = threadIdx.x * 4 + e;
+      const bool m = slot < nq;
+      const int2 qi = m ? queue[slot] : make_int2(0, 0);
+      row[e] = m ? (unsigned)qi.y : kNoRow;
+      gg[e] = m ? __fmul_rn(2.0f, __ldg(d.g + qi.x)) : 0.0f;
 #pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          c[k][a] = m[k] ? __ldg(pts + 3 * qk.x + a) : 0.0f;
-          o[k][a] = m[k] ? __ldg(own + 3 * i + a) : 0.0f;
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < kGather; ++k) {
-        float t[3];
-#pragma unroll
-        for (int a = 0; a < 3; ++a)
-          t[a] = __fmul_rn(gg[k], __fsub_rn(o[k][a], c[k][a]));
-        const bool second = kDirs > 1 && (key[k] >> 31);
-        float* acc = second ? d[kDirs - 1].acc : d[0].acc;
-        add_by_witness(acc + 3 * (key[k] & 0x7fffffffu), m[k], key[k], t);
-      }
+      for (int a = 0; a < 3; ++a)
+        c[e][a] = m ? __ldg(d.pts + 3 * qi.x + a) : 0.0f;
     }
-    __syncwarp();  // the queue is refilled next
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (row[e] == kNoRow) continue;
+      const int slot = threadIdx.x * 4 + e;
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+        bk.term[3 * slot + a] =
+            __fmul_rn(gg[e], __fsub_rn(d.own[3 * row[e] + a], c[e][a]));
+    }
+    bucket_add(d.acc, row, cnt, bk);
   }
 
   __device__ __forceinline__ void rest(const GradDir (&d)[2], unsigned lo,
-                                       unsigned cnt, int2* queue) {
-    const int warp0 = threadIdx.x & ~31;
-    const int lane = threadIdx.x & 31;
-    int nq = 0;  // uniform over the warp
-    for (int base = 0; base + warp0 < n4; base += kSegs * kGradThreads) {
+                                       unsigned cnt, int2* queue,
+                                       const Buckets& bk) {
+    int nq[kDirs];  // uniform over the block
+#pragma unroll
+    for (int r = 0; r < kDirs; ++r) nq[r] = 0;
+    int parity = 0;
+    for (int base = 0; base < n4; base += kSpan) {
       int4 nxt[kDirs][kSegs];
-#pragma unroll
-      for (int r = 0; r < kDirs; ++r)
-#pragma unroll
-        for (int u = 0; u < kSegs; ++u)
-          nxt[r][u] =
-              seg[r].load(base + threadIdx.x + (u + kSegs) * kGradThreads);
+      load(nxt, base + kSpan);
+      // the matches of segment u, direction r: bit 4 u + e of hit[r] for
+      // source 4 segment(base, u) + e - ph; their counts in 16-bit fields
+      // f = r * kSegs + u, scanned together
+      unsigned hit[kDirs];
+      int packed = 0;
 #pragma unroll
       for (int r = 0; r < kDirs; ++r) {
+        hit[r] = 0;
 #pragma unroll
         for (int u = 0; u < kSegs; ++u) {
-          const int s = base + threadIdx.x + u * kGradThreads;
           const int v[4] = {cur[r][u].x, cur[r][u].y, cur[r][u].z,
                             cur[r][u].w};
+          const int s = segment(base, u);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int q = 4 * s + e - seg[r].ph;
             const unsigned i = (unsigned)v[e] - lo;  // -1, out: >= cnt
-            const bool m = q >= 0 && q < n && i < cnt;
-            const unsigned bal = __ballot_sync(0xffffffffu, m);
-            if (m)
-              queue[nq + __popc(bal & ((1u << lane) - 1u))] =
-                  make_int2(q, (int)(i | (unsigned)r << 31));
-            nq += __popc(bal);
+            if (q >= 0 && q < n && i < cnt) hit[r] |= 1u << (4 * u + e);
           }
-          if (nq > kQueue - 4 * 32) {  // the next segment might not fit
-            flush(d, nq, queue);
-            nq = 0;
+          packed += __popc(hit[r] >> (4 * u) & 15u) << (16 * (r * kSegs + u));
+        }
+      }
+      int total;
+      const int pos =
+          block_exclusive(packed, bk.wsum + parity * kGradWarps, total);
+      parity ^= 1;
+#pragma unroll
+      for (int r = 0; r < kDirs; ++r) {
+        // the round's position of this thread's first match of each
+        // segment: the segments u in order, each over the threads
+        int first[kSegs], tot = 0;
+#pragma unroll
+        for (int u = 0; u < kSegs; ++u) {
+          const int f = 16 * (r * kSegs + u);
+          first[u] = tot + ((pos >> f) & 0xffff);
+          tot += (total >> f) & 0xffff;
+        }
+        int2* qr = queue + r * kBucket;
+        for (int done = 0; done < tot;) {  // uniform over the block
+          if (nq[r] == kBucket) {
+            flush(d[r], nq[r], qr, cnt, bk);
+            nq[r] = 0;
           }
+          const int take = min(tot - done, kBucket - nq[r]);
+#pragma unroll
+          for (int u = 0; u < kSegs; ++u) {
+            const int v[4] = {cur[r][u].x, cur[r][u].y, cur[r][u].z,
+                              cur[r][u].w};
+            const int s = segment(base, u);
+            int at = first[u];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              if (!(hit[r] >> (4 * u + e) & 1)) continue;
+              if (at >= done && at < done + take)
+                qr[nq[r] + at - done] = make_int2(
+                    4 * s + e - seg[r].ph, (int)((unsigned)v[e] - lo));
+              ++at;
+            }
+          }
+          nq[r] += take;
+          done += take;
         }
       }
 #pragma unroll
@@ -1054,7 +1193,9 @@ struct QueuedWalk {
 #pragma unroll
         for (int u = 0; u < kSegs; ++u) cur[r][u] = nxt[r][u];
     }
-    flush(d, nq, queue);
+#pragma unroll
+    for (int r = 0; r < kDirs; ++r)
+      if (nq[r]) flush(d[r], nq[r], queue + r * kBucket, cnt, bk);
   }
 };
 
@@ -1065,15 +1206,30 @@ template <bool kDiag, int kCross, int kOwn>
 __device__ __forceinline__ void grad_block(const GradDir (&cross)[2],
                                            const OwnDir (&own)[2], int n_src,
                                            unsigned lo, int cnt,
-                                           int2* queue) {
+                                           int2* queue, const Buckets& bk) {
   constexpr int kWalkDirs = kCross ? kCross : 1;
   using Walk = typename std::conditional<kDiag, DirectWalk<kWalkDirs>,
                                          QueuedWalk<kWalkDirs>>::type;
   Walk walk;
   if (kCross) walk.first(cross, n_src);
+  for (int k = threadIdx.x; k < kRowSlots; k += kGradThreads) bk.end[k] = 0;
   own_terms<kOwn>(own, cnt);
   __syncthreads();
-  if (kCross) walk.rest(cross, lo, (unsigned)cnt, queue);
+  if (kCross) walk.rest(cross, lo, (unsigned)cnt, queue, bk);
+}
+
+// Bytes of the grad kernel's dynamic shared memory for chunks of C owned
+// points, n_acc accumulators (2 with dy), in either mode: the sort's
+// scratch, the accumulators, the staged owned points, a match queue a
+// direction (whole shape), then the buckets.
+__host__ __device__ __forceinline__ size_t grad_smem(bool diag, int n_acc,
+                                                    int C) {
+  const size_t sort = (sizeof(RowSort::TempStorage) + 15) / 16 * 16;
+  const size_t acc = (size_t)n_acc * grad_stride(C) * sizeof(float);
+  const size_t queues = diag ? 0 : (size_t)n_acc * kBucket * sizeof(int2);
+  return sort + 2 * acc + queues + 3 * kBucket * sizeof(float) +
+         (2 * kBucket + 2 * kRowSlots) * sizeof(unsigned short) +
+         2 * kGradWarps * sizeof(int);
 }
 
 // One block per (shape b, owned part j, chunk of C owned points); the owned
@@ -1084,8 +1240,7 @@ __device__ __forceinline__ void grad_block(const GradDir (&cross)[2],
 //   2. cross terms: walk the sources whose witness may lie in part j, all
 //      valid points of the shape (whole shape, kDiag false) or part j's own
 //      (diagonal, whose witnesses stay in their part), and add each
-//      match's term to its owned row by a shared-memory atomicAdd, equal
-//      witnesses of a warp summed first;
+//      match's term to its owned row through the buckets, in source order;
 //   3. write the rows out whole, 16 bytes at a time where aligned.
 template <bool kDiag>
 __global__ void __launch_bounds__(kGradThreads, kGradBlocksPerSM)
@@ -1095,7 +1250,7 @@ chamfer_grad_kernel(const float* __restrict__ x, const float* __restrict__ y,
                     const float* __restrict__ g1,
                     const float* __restrict__ g2, float* __restrict__ dx,
                     float* __restrict__ dy, int P, int N, int n_ch, int C) {
-  extern __shared__ float4 grad_smem[];
+  extern __shared__ float4 grad_smem_buf[];
   const int ch = blockIdx.x % n_ch;
   const int j = (blockIdx.x / n_ch) % P;
   const int b = blockIdx.x / (n_ch * P);
@@ -1109,17 +1264,28 @@ chamfer_grad_kernel(const float* __restrict__ x, const float* __restrict__ y,
     if (dy) store_rows(dy + row * 3, nullptr, 3 * cnt);
     return;
   }
-  // shared memory: the dx and dy accumulators, then the staged owned x and
-  // y points (diagonal) or the warps' match queues (whole shape)
+  // shared memory, in the order of grad_smem
   const int stride = grad_stride(C);
-  float* sm = reinterpret_cast<float*>(grad_smem);
   const int n_acc = dy ? 2 : 1;
+  char* base = reinterpret_cast<char*>(grad_smem_buf);
+  Buckets bk;
+  bk.sort = reinterpret_cast<RowSort::TempStorage*>(base);
+  float* sm = reinterpret_cast<float*>(
+      base + (sizeof(RowSort::TempStorage) + 15) / 16 * 16);
   float* ax = sm + phase16(dx + row * 3);
   float* ay = dy ? sm + stride + phase16(dy + row * 3) : nullptr;
-  float* sx = kDiag ? sm + n_acc * stride : nullptr;
-  float* sy = kDiag && dy ? sm + 3 * stride : nullptr;
-  int2* queue = reinterpret_cast<int2*>(sm + n_acc * stride) +
-                (threadIdx.x >> 5) * kQueue;
+  float* tail = sm + n_acc * stride;
+  float* sx = tail;
+  float* sy = dy ? tail + stride : nullptr;
+  tail += n_acc * stride;
+  int2* queue = kDiag ? nullptr : reinterpret_cast<int2*>(tail);
+  tail += kDiag ? 0 : n_acc * kBucket * 2;
+  bk.term = tail;
+  bk.key = reinterpret_cast<unsigned short*>(tail + 3 * kBucket);
+  bk.src = bk.key + kBucket;
+  bk.start = bk.src + kBucket;
+  bk.end = bk.start + kRowSlots;
+  bk.wsum = reinterpret_cast<int*>(bk.end + kRowSlots);
   const OwnDir own[2] = {
       {ax, sx, x + row * 3, y + shape * 3, w1 + row, g1 ? g1 + row : nullptr},
       {ay, sy, y + row * 3, x + shape * 3, w2 + row,
@@ -1130,25 +1296,46 @@ chamfer_grad_kernel(const float* __restrict__ x, const float* __restrict__ y,
   const unsigned lo = (unsigned)(j * N + c0);
   // a y source q adds 2 g2_q (x_i - y_q) to dx_i, an x source p adds
   // 2 g1_p (y_i - x_p) to dy_i
-  const GradDir to_dx = {w2 + src, g2 ? g2 + src : nullptr, y + src * 3,
-                         kDiag ? sx : x + row * 3, ax};
-  const GradDir to_dy = {w1 + src, g1 ? g1 + src : nullptr, x + src * 3,
-                         kDiag ? sy : y + row * 3, ay};
+  const GradDir to_dx = {w2 + src, g2 ? g2 + src : nullptr, y + src * 3, sx,
+                         ax};
+  const GradDir to_dy = {w1 + src, g1 ? g1 + src : nullptr, x + src * 3, sy,
+                         ay};
   const bool with_dx = g2 != nullptr, with_dy = dy && g1;
   const GradDir cross[2] = {with_dx ? to_dx : to_dy, to_dy};
   if (!dy && with_dx)
-    grad_block<kDiag, 1, 1>(cross, own, n_src, lo, cnt, queue);
+    grad_block<kDiag, 1, 1>(cross, own, n_src, lo, cnt, queue, bk);
   else if (!dy)
-    grad_block<kDiag, 0, 1>(cross, own, n_src, lo, cnt, queue);
+    grad_block<kDiag, 0, 1>(cross, own, n_src, lo, cnt, queue, bk);
   else if (with_dx && with_dy)
-    grad_block<kDiag, 2, 2>(cross, own, n_src, lo, cnt, queue);
+    grad_block<kDiag, 2, 2>(cross, own, n_src, lo, cnt, queue, bk);
   else if (with_dx || with_dy)
-    grad_block<kDiag, 1, 2>(cross, own, n_src, lo, cnt, queue);
+    grad_block<kDiag, 1, 2>(cross, own, n_src, lo, cnt, queue, bk);
   else
-    grad_block<kDiag, 0, 2>(cross, own, n_src, lo, cnt, queue);
+    grad_block<kDiag, 0, 2>(cross, own, n_src, lo, cnt, queue, bk);
   __syncthreads();
   store_rows(dx + row * 3, ax, 3 * cnt);
   if (dy) store_rows(dy + row * 3, ay, 3 * cnt);
+}
+
+// Raises the grad kernels' limit of dynamic shared memory (above 48 KB
+// only by this opt-in) to the most a launch asks for, once a device.
+cudaError_t allow_grad_smem() {
+  static std::atomic<unsigned long long> done{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(chamfer_grad_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)grad_smem(true, 2, kGradChunk));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(chamfer_grad_kernel<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)grad_smem(false, 2, kGradChunk));
+  if (err != cudaSuccess) return err;
+  done.fetch_or(bit);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -1216,9 +1403,9 @@ int mpa_chamfer_grad(const float* x, const float* y, const int* n_parts,
   if ((long long)P * N >= (1LL << 31) || blocks >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   const bool diagonal = mode == kDiagonal;
-  const size_t acc = (size_t)(dy ? 2 : 1) * grad_stride(C) * sizeof(float);
-  const size_t smem =
-      diagonal ? 2 * acc : acc + sizeof(int2) * kQueue * (kGradThreads / 32);
+  const size_t smem = grad_smem(diagonal, dy ? 2 : 1, C);
+  const cudaError_t err = allow_grad_smem();
+  if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
   if (diagonal)
     chamfer_grad_kernel<true><<<(unsigned)blocks, kGradThreads, smem, s>>>(

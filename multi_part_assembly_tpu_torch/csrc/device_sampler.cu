@@ -7,11 +7,12 @@
 //   mpa_sample_chunked  <- _sample_kernel_chunked (:269), launched by
 //                          _sample_points_chunked on the chunked
 //                          [total_chunks, 24, Fc] table and its
-//                          [3 + Cmax, n_pieces] meta array; the port stores
-//                          that table face-major, as the records
-//                          [total_chunks * Fc, 24] (one 96-byte record a
-//                          face, datasets/device_sampler.py chunk_records),
-//                          which the kernel reads
+//                          [3 + Cmax, n_pieces] meta array
+// The port stores both tables face-major, as records, which the kernels
+// read (datasets/device_sampler.py table_records): dense [n_pieces * Fmax,
+// 12], one 48-byte record a face (triangle, prob, alias, one float of
+// padding); chunked [total_chunks * Fc, 24], one 96-byte record a face
+// (triangle, prob, alias triangle, zero padding).
 //
 // Both draw N area-weighted surface points for each packed part row k by
 // the Walker alias method, with the uniforms u [K, 3, N] given:
@@ -33,34 +34,33 @@
 // the alias face's triangle, not its index).
 //
 // What bounds them on the card: bytes.  A point must read its three
-// uniforms, its triangle's nine floats and its acceptance (dense: and its
-// alias), and write three floats: 64 bytes (chunked) or 68 (dense), no
-// arithmetic to speak of.  At the flagship's K <= 640 rows of 1000 points
-// that is at most 41 MB, about 12 us at the HBM3 rate, so a launch is
-// short and its fixed cost and its chain of dependent loads weigh as much
-// as its bytes.  The dense kernel does one thread per point, three
-// coalesced uniform reads, then prob and alias, then the nine values of
-// the drawn face's triangle: eleven scattered 4-byte reads, each in its
-// own 32-byte sector (rows are Fmax floats apart), in two dependent
-// rounds.  The chunked kernel reads two sectors of one 96-byte record
-// instead (a record is 96-byte aligned, so its three sectors are its own:
-// floats 0-7, 8-15, 16-23): a block serves one row (no division on the way
-// to the first load), the uniforms are in flight with the slot, then the
-// meta pair, then the 16 bytes around prob (floats 8-11, the middle
-// sector), then, by frac < prob, floats 0-7 (the first sector) or 12-19
-// (the rest of the middle one and the last) as two 16-byte loads, the mix
-// and one write.  One sector
-// fewer a point outweighs the extra round: the whole record as 16-byte
-// loads in one round (three sectors a point) took 1.2 to 1.3x as long with
-// the records warm in L2 and 1.04 to 1.06x as long cold
-// (scripts/sampler_reads_torch.py, PERF.md).  Cold, the launch is set by
-// its chain of four dependent HBM reads and by the records' bytes: a
-// piece whose faces are nearly all drawn (everyday, N >= F) moves its
-// records whole, 96 bytes a face against the 44 of the dense rows it
-// uses, so there the dense kernel is the faster of the two.  The TPU's devices (one-hot MXU matmuls to turn
-// per-point gathers into dense work, the sequential chunk axis of the grid
-// with its accumulate) have no counterpart: a gather is native here.
-// Flat offsets are 64-bit: a chunked table can pass 2^31 floats.
+// uniforms and write three floats, 24 bytes, and read the table values its
+// draw needs (prob, the alias, nine triangle values), each distinct value
+// once: no arithmetic to speak of.  At the flagship's K <= 640 rows of 1000
+// points that is at most about 40 MB, about 12 us at the HBM3 rate, so a
+// launch is short and its chain of dependent loads, and the sectors each
+// link touches, weigh as much as its bytes.  Both kernels serve one row a
+// block (no division on the way to the first load), load the uniforms
+// beside the slot, then the slot's face count (chunked: and first chunk),
+// then 16 bytes around prob (floats 8-11, one sector), then only the 32
+// bytes of the triangle the draw needs, the mix and one write: two or three
+// sectors a point, where the JAX layout puts a face's values in eleven
+// sectors Fmax floats apart.  Dense: floats 0-7 of f0 when the draw keeps
+// it (float 8 came with prob), floats 0-8 of the alias face otherwise.
+// Chunked: by frac < prob, floats 0-7 (the first sector) or 12-19 (the
+// rest of the middle one and the last) as two 16-byte loads.  One sector
+// fewer a point outweighs the extra round: the whole record in one round
+// took longer, cold and warm (scripts/sampler_reads_torch.py, PERF.md).
+// Cold, a launch is set by its chain of dependent HBM reads and by the
+// records' bytes: a piece whose faces are nearly all drawn (everyday, N >=
+// F) moves its records whole, so the dense record holds only what a draw
+// needs, 48 bytes (11 floats and one of padding, so that each 16 bytes
+// stay aligned): it beat the 64-byte record of the same reads cold and
+// warm, and the JAX layout's rows cold (PERF.md).  The TPU's
+// devices (one-hot MXU matmuls to turn per-point gathers into dense work,
+// the sequential chunk axis of the grid with its accumulate) have no
+// counterpart: a gather is native here.  Flat offsets are 64-bit: a table
+// can pass 2^31 floats.
 //
 // Numerics: every operation is rounded on its own (__fmul_rn, __fadd_rn,
 // __fsub_rn, __fsqrt_rn cannot be contracted into an FMA; the library is
@@ -76,10 +76,9 @@ namespace {
 constexpr int kThreads = 256;  // points per block
 constexpr unsigned kMaxGridYZ = 65535;  // CUDA's limit on gridDim.y and .z
 
-// dense rows (datasets/device_sampler.py _ROW_*)
-constexpr int kRows = 16;
-constexpr int kRowProb = 9;
-constexpr int kRowAlias = 10;
+// dense records (the _ROW_* rows 0-10 of the table and one float of
+// padding, one record a face): 12 floats, three float4
+constexpr int kDRec4 = 3;
 // chunked records (the _CROW_* rows of the table, one record a face):
 // 24 floats, six float4
 constexpr int kRec4 = 6;
@@ -123,30 +122,41 @@ __device__ __forceinline__ void write_bad(float* out, int* draws,
   if (draws != nullptr) draws[p] = 0;
 }
 
-// one thread per point p = k * N + n of the [K, N] grid
+// One thread per point n of row k = blockIdx.x.  The chain is slots[k] ->
+// the face count -> the 16 bytes of f0's record around prob and alias
+// (floats 8-11) -> the drawn face's triangle (f0's floats 0-7, or, after an
+// alias draw, face f's floats 0-8) -> one write; the uniforms are loaded
+// before the slot, so their latency hides behind it.
 __global__ void __launch_bounds__(kThreads)
-sample_dense_kernel(const float* __restrict__ table,
+sample_dense_kernel(const float4* __restrict__ records,
                     const int* __restrict__ n_faces,
                     const int* __restrict__ slots,
                     const float* __restrict__ u, float* __restrict__ out,
-                    int* __restrict__ draws, long long total, int N,
-                    int fmax, int n_pieces) {
-  const long long p = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (p >= total) return;
-  const long long k = p / N;
-  const long long n = p - k * N;
-  const int slot = slots[k];
+                    int* __restrict__ draws, int N, int fmax, int n_pieces) {
+  const int k = blockIdx.x;
+  const int n = blockIdx.y * kThreads + threadIdx.x;
+  if (n >= N) return;
+  const long long p = (long long)k * N + n;
+  const float* uk = u + p * 3 - 2 * n;  // u[k, 0, n]
+  const float u0 = __ldg(uk), u1 = __ldg(uk + N), u2 = __ldg(uk + 2 * N);
+  const int slot = __ldg(slots + k);
   if (slot < 0 || slot >= n_pieces) {
     write_bad(out, draws, p);
     return;
   }
-  const float* uk = u + k * 3 * N + n;
-  const Draw d = draw_face(uk[0], (float)n_faces[slot]);
-  const float* t = table + (long long)slot * kRows * fmax;
-  const float prob = t[(long long)kRowProb * fmax + d.f0];
-  const float alias = t[(long long)kRowAlias * fmax + d.f0];
-  const int f = d.frac < prob ? d.f0 : (int)__fadd_rn(alias, 0.5f);
-  mix(t + f, fmax, uk[N], uk[2 * N], out + p * 3);
+  const Draw d = draw_face(u0, (float)__ldg(n_faces + slot));
+  const float4* piece = records + (long long)slot * fmax * kDRec4;
+  // round 1: floats 8-11 of f0's record (tri[8], prob, alias, padding)
+  const float4 mid = __ldg(piece + (long long)d.f0 * kDRec4 + 2);
+  const bool accept = d.frac < mid.y;
+  const int f = accept ? d.f0 : (int)__fadd_rn(mid.z, 0.5f);
+  // round 2: floats 0-7 of the drawn face, and float 8 after an alias draw
+  const float4* rec = piece + (long long)f * kDRec4;
+  const float4 a = __ldg(rec), b = __ldg(rec + 1);
+  const float t8 =
+      accept ? mid.x : __ldg(reinterpret_cast<const float*>(rec + 2));
+  const float t[9] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, t8};
+  mix(t, 1, u1, u2, out + p * 3);
   if (draws != nullptr) draws[p] = f;
 }
 
@@ -190,25 +200,25 @@ sample_chunked_kernel(const float4* __restrict__ records,
   if (draws != nullptr) draws[p] = accept ? d.f0 : -1 - d.f0;
 }
 
-unsigned blocks_for(long long total) {
-  return (unsigned)((total + kThreads - 1) / kThreads);
-}
-
 }  // namespace
 
 extern "C" {
 
-// Dense table [n_pieces, 16, fmax], n_faces [n_pieces], slots [K],
-// uniforms [K, 3, N] -> out [K, N, 3] (draws [K, N] when not null).
-// Returns a cudaError_t.
-int mpa_sample_dense(const float* table, const int* n_faces, const int* slots,
-                     const float* uniforms, float* out, int* draws, int K,
-                     int N, int fmax, int n_pieces, void* stream) {
-  const long long total = (long long)K * N;
-  if (total == 0) return 0;
-  sample_dense_kernel<<<blocks_for(total), kThreads, 0,
-                        (cudaStream_t)stream>>>(
-      table, n_faces, slots, uniforms, out, draws, total, N, fmax, n_pieces);
+// Records [n_pieces * fmax, 12] (16-byte aligned), n_faces [n_pieces],
+// slots [K], uniforms [K, 3, N] -> out [K, N, 3] (draws [K, N] when not
+// null).  Returns a cudaError_t.
+int mpa_sample_dense(const float* records, const int* n_faces,
+                     const int* slots, const float* uniforms, float* out,
+                     int* draws, int K, int N, int fmax, int n_pieces,
+                     void* stream) {
+  if ((long long)K * N == 0) return 0;
+  if ((unsigned long long)records % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const dim3 grid(K, (N + kThreads - 1) / kThreads);
+  if (grid.y > kMaxGridYZ) return (int)cudaErrorInvalidValue;
+  sample_dense_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      reinterpret_cast<const float4*>(records), n_faces, slots, uniforms,
+      out, draws, N, fmax, n_pieces);
   return (int)cudaGetLastError();
 }
 

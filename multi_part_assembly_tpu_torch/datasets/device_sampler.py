@@ -16,21 +16,29 @@ them):
     ceil(F / Fc) chunks; rows 0-8 the triangle of face f, row 9 prob, rows
     10-18 the triangle of alias(f), so a draw needs only f0's own column;
     `n_faces` is then the `[3 + Cmax, n_pieces]` i32 meta array (face
-    count, first chunk row, chunk count).  The port stores it face-major,
-    as the RECORDS `[total_chunks, Fc, 24]`, and `table` is their view
-    `records.permute(0, 2, 1)`, so it holds the JAX values with no second
-    copy; `chunk_records(table)` gives the records back.  Face f0 of a
-    piece is the 96-byte record `base * Fc + f0`, its triangle, prob and
-    alias triangle side by side.
+    count, first chunk row, chunk count).
 
-Kernels B5 (`sample_dense_cuda`) and B6 (`sample_chunked_cuda`, which reads
-the records) are CUDA C++ in csrc/device_sampler.cu.  Beside each sits its
-plain PyTorch version on the same inputs (`sample_dense_plain`,
+The port stores either table face-major, as RECORDS, one a face, which
+its kernel reads; `table_records(table)` gives them.  Dense:
+`DeviceTables.table` is the records themselves, `[n_pieces, Fmax, 3, 4]`,
+face f of slot s the 48-byte record `s * Fmax + f` (triangle, prob, alias,
+one float of padding): 48 bytes a face move fewer bytes than 64 when most
+faces of a piece are drawn, and no view of them has the JAX layout, so
+`jax_table(table)` makes that layout (a copy, for the tests and the
+checks).  Chunked: `DeviceTables.table` is the view
+`records.permute(0, 2, 1)` of the records `[total_chunks, Fc, 24]`, so it
+holds the JAX values with no second copy; face f0 of a piece is the
+96-byte record `base * Fc + f0` (triangle, prob, alias triangle, zero
+padding).
+
+Kernels B5 (`sample_dense_cuda`) and B6 (`sample_chunked_cuda`) are CUDA
+C++ in csrc/device_sampler.cu, and both read the records.  Beside each sits
+its plain PyTorch version on the same inputs (`sample_dense_records_plain`,
 `sample_records_plain`), computing the same draw in the same order of
-rounded operations; `sample_chunked_plain` is the same draw read from the
-table's JAX layout, the reference.  A CPU tensor takes the plain version,
-since no kernel exists for the CPU; a CUDA tensor launches the kernel or
-raises.  `LAUNCHES` counts the kernel launches.
+rounded operations; `sample_dense_plain` and `sample_chunked_plain` are the
+same draws read from the tables' JAX layout, the references.  A CPU tensor
+takes the plain version, since no kernel exists for the CPU; a CUDA tensor
+launches the kernel or raises.  `LAUNCHES` counts the kernel launches.
 
 The uniforms are `[K, 3, N]` f32 (rows 0-2 of the JAX package's
 `[K, 8, Npad]`: face draw, sqrt argument, barycentric mix), drawn with
@@ -45,17 +53,20 @@ import torch
 from .geometry import expand_geometry_batch
 from ..ops.cuda_build import load_library
 
-__all__ = ['DeviceTables', 'build_device_tables', 'chunk_records',
-           'sample_packed', 'sample_packed_ref', 'sample_and_expand',
-           'sample_dense_cuda', 'sample_chunked_cuda', 'sample_dense_plain',
+__all__ = ['DeviceTables', 'build_device_tables', 'table_records',
+           'jax_table', 'sample_packed', 'sample_packed_ref',
+           'sample_and_expand', 'sample_dense_cuda', 'sample_chunked_cuda',
+           'sample_dense_plain', 'sample_dense_records_plain',
            'sample_chunked_plain', 'sample_records_plain', 'LAUNCHES',
            'reset_launches']
 
-# dense table row layout (per piece, [16, Fmax] f32)
+# dense table row layout (per piece, [16, Fmax] f32), and the values of a
+# dense record ([3, 4] f32 a face: the rows 0-10, one float of padding)
 _ROW_TRI = 0      # rows 0-8: a.xyz, (b-a).xyz, (c-a).xyz, component-major
 _ROW_PROB = 9     # alias acceptance threshold
 _ROW_ALIAS = 10   # alias face index (f32-encoded, exact below 2^24)
 _N_ROWS = 16
+_REC_D = (3, 4)   # a dense record: 12 floats, three float4
 
 # chunked table row layout (per chunk, [24, Fc] f32)
 _CROW_TRI = 0     # rows 0-8: tri(f), same component-major layout
@@ -89,9 +100,9 @@ class DeviceTables:
     """Device-resident sampling tables and the host path -> slot map."""
 
     def __init__(self, table, n_faces, slot_of, fmax):
-        # dense: table [n_pieces, 16, Fmax], n_faces [n_pieces] i32;
-        # chunked: table [total_chunks, 24, Fc], the view of the records,
-        # n_faces the [3 + Cmax, n_pieces] i32 meta array
+        # dense: table the records [n_pieces, Fmax, 3, 4], n_faces
+        # [n_pieces] i32; chunked: table [total_chunks, 24, Fc], the view
+        # of its records, n_faces the [3 + Cmax, n_pieces] i32 meta array
         self.table = table
         self.n_faces = n_faces
         self.slot_of = slot_of  # mesh path -> slot
@@ -99,28 +110,44 @@ class DeviceTables:
 
     @property
     def layout(self):
-        return 'chunked' if self.table.shape[1] == _N_ROWS_C else 'dense'
+        return 'dense' if self.table.dim() == 4 else 'chunked'
 
     @property
     def nbytes(self):
         return self.table.numel() * 4 + self.n_faces.numel() * 4
 
 
-def chunk_records(table):
-    """The records of a chunked table, [total_chunks, 24, Fc] ->
-    [total_chunks, Fc, 24]: a view, contiguous for the tables that
-    `build_device_tables` makes.  Record `base * Fc + f` of a piece whose
-    chunks start at row `base` holds face f's column of the table: the
+def table_records(table):
+    """The records a table's kernel reads, from the table as DeviceTables
+    holds it: the dense records [n_pieces, Fmax, 3, 4] as they are, or the
+    chunked table [total_chunks, 24, Fc] as its records [total_chunks, Fc,
+    24] (a view; the view is its own inverse).  Dense record `s * Fmax + f`
+    holds face f of slot s: the triangle (0-8), prob (9) and alias (10),
+    then one float of padding, 48 bytes.  Chunked record `base * Fc + f` of
+    a piece whose chunks start at row `base` holds face f's column: the
     triangle (0-8), prob (9) and the alias triangle (10-18), then zero
-    padding, 96 bytes in all."""
-    return table.permute(0, 2, 1)
+    padding, 96 bytes.  The records of the tables that
+    `build_device_tables` makes are contiguous."""
+    return table if table.dim() == 4 else table.permute(0, 2, 1)
 
 
-def build_device_tables(paths, sampler, device='cpu',
-                        budget_bytes=4 * 1024 ** 3, fmax=None,
-                        chunk_f=_CHUNK_F, layout=None):
+def jax_table(table):
+    """The JAX layout of a table as DeviceTables holds it: the dense
+    [n_pieces, 16, Fmax] table of the dense records (a copy, rows 11-15
+    zero), or the chunked table as it is."""
+    if table.dim() != 4:
+        return table
+    n, fmax = table.shape[:2]
+    out = table.new_zeros((n, _N_ROWS, fmax))
+    out[:, :_ROW_ALIAS + 1] = \
+        table.reshape(n, fmax, -1)[..., :_ROW_ALIAS + 1].permute(0, 2, 1)
+    return out
+
+
+def build_device_tables(paths, sampler, device, budget_bytes=4 * 1024 ** 3,
+                        fmax=None, chunk_f=_CHUNK_F, layout=None):
     """Assemble the sampling tables for `paths` in numpy and place them on
-    `device` (JAX device_sampler.py:122-209).
+    `device`, which the caller names (JAX device_sampler.py:122-209).
 
     `sampler` is a mesh_io.MeshSampler.  `layout` picks the table format:
     'dense', 'chunked', or None = auto: the JAX package's rule, kept
@@ -163,15 +190,17 @@ def build_device_tables(paths, sampler, device='cpu',
             max(128, _round_up(max(counts), 128))
         if max(counts) <= fmax_d and \
                 n_pieces * _N_ROWS * fmax_d * 4 <= budget_bytes:
-            table = np.zeros((n_pieces, _N_ROWS, fmax_d), np.float32)
+            # face-major: face f of slot i is record i * fmax_d + f
+            records = np.zeros((n_pieces, fmax_d, _REC_D[0] * _REC_D[1]),
+                               np.float32)
             for i, p in enumerate(paths):
                 tri9, prob, alias, _ = sampler.export_tables(p, fmax_d)
-                table[i, _ROW_TRI:_ROW_TRI + 9] = tri9
-                table[i, _ROW_PROB] = prob
-                table[i, _ROW_ALIAS] = alias
-            return DeviceTables(put(table),
-                                put(np.asarray(counts, np.int32)),
-                                slot_of, fmax_d)
+                records[i, :, _ROW_TRI:_ROW_TRI + 9] = tri9.T
+                records[i, :, _ROW_PROB] = prob
+                records[i, :, _ROW_ALIAS] = alias
+            return DeviceTables(
+                put(records.reshape(n_pieces, fmax_d, *_REC_D)),
+                put(np.asarray(counts, np.int32)), slot_of, fmax_d)
         return None
 
     # chunked: memory ~ sum(ceil(F_i / chunk_f)) * 24 * chunk_f
@@ -200,7 +229,8 @@ def build_device_tables(paths, sampler, device='cpu',
         rec[:, _CROW_PROB] = prob
         rec[:, _CROW_ATRI:_CROW_ATRI + 9] = atri.T
     records = put(records.reshape(total, chunk_f, _N_ROWS_C))
-    return DeviceTables(chunk_records(records), put(meta), slot_of, chunk_f)
+    return DeviceTables(records.permute(0, 2, 1), put(meta), slot_of,
+                        chunk_f)
 
 
 # ---------------------------------------------------------------------------
@@ -254,14 +284,16 @@ def _launch(fn_name, table, name, shape, width, index, slots, uniforms,
     return out, draws
 
 
-def sample_dense_cuda(table, n_faces, slots, uniforms, return_draws=False):
-    """Kernel B5: area-weighted surface points from the dense table.
+def sample_dense_cuda(records, n_faces, slots, uniforms, return_draws=False):
+    """Kernel B5: area-weighted surface points from the dense table's
+    48-byte records, f0's prob and alias first, then the drawn triangle.
 
     Replaces `_sample_kernel` (JAX device_sampler.py:212), launched by
     `_sample_points` (:357).
 
     Args:
-        table: [n_pieces, 16, Fmax] f32 CUDA;  n_faces: [n_pieces] int32
+        records: [n_pieces, Fmax, 3, 4] f32 CUDA, contiguous: the dense
+            table's records;  n_faces: [n_pieces] int32
         slots: [K] int32 piece slot of each packed row, in [0, n_pieces)
             (a slot outside gives NaN points)
         uniforms: [K, 3, N] f32
@@ -270,8 +302,8 @@ def sample_dense_cuda(table, n_faces, slots, uniforms, return_draws=False):
         points [K, N, 3] f32, and with `return_draws` the sampled face of
         each point, [K, N] int32
     """
-    out, draws = _launch('mpa_sample_dense', table, 'table',
-                         (-1, _N_ROWS, -1), table.shape[-1], n_faces, slots,
+    out, draws = _launch('mpa_sample_dense', records, 'records',
+                         (-1, -1, *_REC_D), records.shape[1], n_faces, slots,
                          uniforms, n_faces.shape[0], return_draws)
     LAUNCHES['sample_dense'] += 1
     return (out, draws) if return_draws else out
@@ -286,7 +318,7 @@ def sample_chunked_cuda(records, meta, slots, uniforms, return_draws=False):
 
     Args:
         records: [total_chunks, Fc, 24] f32 CUDA, contiguous: the chunked
-            table's records (`chunk_records`);  meta: [3 + Cmax,
+            table's records (`table_records`);  meta: [3 + Cmax,
             n_pieces] int32;  slots, uniforms: as `sample_dense_cuda`
 
     Returns:
@@ -329,8 +361,9 @@ def _mix(tri, uniforms):
 
 
 def sample_dense_plain(table, n_faces, slots, uniforms, return_draws=False):
-    """Plain version of `sample_dense_cuda` (JAX `sample_packed_ref`,
-    device_sampler.py:434-458), by flat gathers."""
+    """The draw of `sample_dense_cuda` read from the dense table's JAX
+    layout (JAX `sample_packed_ref`, device_sampler.py:434-458), by flat
+    gathers: the reference for `sample_dense_records_plain`."""
     fmax = table.shape[2]
     flat = table.reshape(-1)
     sl = slots.long()
@@ -342,6 +375,28 @@ def sample_dense_plain(table, n_faces, slots, uniforms, return_draws=False):
     f = torch.where(frac < prob, f0, (alias + 0.5).long())   # [K, N]
     rows = piece[..., None] + torch.arange(9, device=table.device)
     tri = flat[(rows + _ROW_TRI) * fmax + f[..., None]]      # [K, N, 9]
+    out = _mix(tri, uniforms)
+    return (out, f.to(torch.int32)) if return_draws else out
+
+
+def sample_dense_records_plain(records, n_faces, slots, uniforms,
+                               return_draws=False):
+    """Plain version of `sample_dense_cuda`, on its inputs: the draw of
+    `sample_dense_plain` read from the face-major records, by flat
+    gathers."""
+    fmax = records.shape[1]
+    width = _REC_D[0] * _REC_D[1]
+    flat = records.reshape(-1)
+    sl = slots.long()
+    f0, frac = _draw_face(uniforms[:, 0], n_faces[sl])
+    piece = (sl * fmax)[:, None]                             # [K, 1]
+    rec = (piece + f0) * width
+    prob = flat[rec + _ROW_PROB]
+    alias = flat[rec + _ROW_ALIAS]
+    # +0.5 before the truncating cast rounds the exact-integer alias
+    f = torch.where(frac < prob, f0, (alias + 0.5).long())   # [K, N]
+    first = (piece + f) * width + _ROW_TRI
+    tri = flat[first[..., None] + torch.arange(9, device=records.device)]
     out = _mix(tri, uniforms)
     return (out, f.to(torch.int32)) if return_draws else out
 
@@ -391,9 +446,9 @@ def sample_records_plain(records, meta, slots, uniforms, return_draws=False):
 
 
 def sample_packed_ref(table, n_faces, slots, uniforms, return_draws=False):
-    """Plain version of either layout, picked by the table's row extent
-    (16 rows dense, 24 chunked): [K] slots + [K, 3, N] uniforms ->
-    [K, N, 3] f32."""
+    """Plain version of either layout on its JAX layout (`jax_table`),
+    picked by the table's row extent (16 rows dense, 24 chunked): [K] slots
+    + [K, 3, N] uniforms -> [K, N, 3] f32."""
     fn = sample_chunked_plain if table.shape[1] == _N_ROWS_C \
         else sample_dense_plain
     return fn(table, n_faces, slots, uniforms, return_draws=return_draws)
@@ -402,15 +457,22 @@ def sample_packed_ref(table, n_faces, slots, uniforms, return_draws=False):
 def _sample_points(table, n_faces, slots, uniforms, return_draws=False):
     """[K] slots + [K, 3, N] uniforms -> [K, N, 3] f32 (JAX
     device_sampler.py:357-392): the kernel of the table's layout on a CUDA
-    tensor, its plain version on a CPU tensor.  The chunked layout draws
-    from the table's records (`chunk_records`)."""
+    tensor, its plain version on a CPU tensor, either drawing from the
+    table's records (`table_records`).  A dense table in the JAX layout
+    ([n_pieces, 16, Fmax]) takes its plain version on the CPU; the kernel
+    refuses it."""
     cpu = table.device.type == 'cpu'
-    if table.shape[1] == _N_ROWS_C:
+    if table.dim() == 4:
+        fn = sample_dense_records_plain if cpu else sample_dense_cuda
+    elif table.shape[1] == _N_ROWS_C:
         fn = sample_records_plain if cpu else sample_chunked_cuda
-        table = chunk_records(table)
+    elif cpu:
+        return sample_dense_plain(table, n_faces, slots, uniforms,
+                                  return_draws=return_draws)
     else:
-        fn = sample_dense_plain if cpu else sample_dense_cuda
-    return fn(table, n_faces, slots, uniforms, return_draws=return_draws)
+        fn = sample_dense_cuda
+    return fn(table_records(table), n_faces, slots, uniforms,
+              return_draws=return_draws)
 
 
 def sample_packed(table, n_faces, slots, generator, n_points):

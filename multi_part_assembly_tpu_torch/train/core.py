@@ -2,13 +2,15 @@
 
 Port of multi_part_assembly_tpu/train/core.py:30-206 for geometric
 assembly.  The model's precompute runs once; `sample_iter` samples follow
-in a loop (the JAX package vmaps them) and each batch element keeps its
-best sample.  Train or eval mode is the model's own; `training` picks the
-loss semantics (shape-CD divisor, eval metrics).
+in a loop (the JAX package vmaps them), each from the same batch-norm
+running statistics, and each batch element keeps its best sample.  Train
+or eval mode is the model's own; `training` picks the loss semantics
+(shape-CD divisor, eval metrics).
 """
 
 import torch
 
+from ..models.modules.norm import MaskedBatchNorm
 from ..utils.eval_utils import calc_part_acc
 from ..utils.loss import (rot_cosine_loss, rot_points_cd_loss,
                           rot_points_l2_loss, shape_cd_loss, trans_l2_loss)
@@ -65,6 +67,13 @@ def calc_loss(pred_rot_raw, pred_trans, data_dict, *, rot_type, semantic,
     return loss_dict
 
 
+def _bn_buffers(model):
+    """The running-statistics buffers of every batch norm in `model`."""
+    norms = (MaskedBatchNorm, torch.nn.modules.batchnorm._BatchNorm)
+    return [b for m in model.modules() if isinstance(m, norms)
+            for b in m.buffers(recurse=False)]
+
+
 def loss_one_sample(pred, data_dict, **kw):
     """Losses of one sample; a multi-step prediction [T, B, P, ...] sums its
     steps and logs each as `{k}_{i}` (JAX core.py:111-140)."""
@@ -87,7 +96,8 @@ def mon_loss(model, data_dict, *, cfg, training, reduce=True,
     Returns (scalar loss, log dict).  Logs are batch means, or per-element
     [B] vectors with reduce=False (eval slices off padding rows before
     averaging).  BatchNorm running statistics update in place when the
-    model is in train mode.
+    model is in train mode: `precompute`'s update, then the mean of the
+    samples' updates.
     """
     semantic = cfg.data.dataset != 'geometry'
     sample_iter = cfg.loss.get('sample_iter', 1)
@@ -103,9 +113,30 @@ def mon_loss(model, data_dict, *, cfg, training, reduce=True,
               with_metrics=not training)
 
     feats = model.precompute(data_dict)
-    samples = [loss_one_sample(model.sample(feats, data_dict, generator),
-                               data_dict, **kw)
-               for _ in range(sample_iter)]
+    # Train-mode BN in `sample` updates the running statistics.  The
+    # original torch repo ran the samples one after another, each updating
+    # them in turn; the JAX package, which the port is held against, starts
+    # every sample from the statistics after `precompute` and keeps the mean
+    # of the samples' updates (JAX core.py:169-185, 200-204).  One sample
+    # needs no snapshot: its update is the mean.
+    buffers = _bn_buffers(model) if model.training and sample_iter > 1 \
+        else []
+    start = [b.clone() for b in buffers]
+    updates = [[] for _ in buffers]
+    samples = []
+    for _ in range(sample_iter):
+        samples.append(loss_one_sample(
+            model.sample(feats, data_dict, generator), data_dict, **kw))
+        with torch.no_grad():
+            for b, s, u in zip(buffers, start, updates):
+                u.append(b.clone())
+                b.copy_(s)
+    with torch.no_grad():
+        for b, u in zip(buffers, updates):
+            if b.is_floating_point():
+                b.copy_(torch.stack(u).mean(0))
+            else:  # a batch counter: one step, as one sample leaves it
+                b.copy_(u[-1])
     loss_dicts = {k: torch.stack([s[k] for s in samples]) for k in samples[0]}
     loss_dicts['loss'] = sum(loss_dicts[k] * w for k, w in weights.items())
 

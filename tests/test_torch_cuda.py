@@ -8,11 +8,12 @@ imports no JAX, so it runs on a machine with only PyTorch:
 Tolerances: distances bit for bit and witnesses exactly (the kernel
 computes the plain version's expression with every operation rounded on
 its own; B1/B3's pruned list equals its dense list exactly, and so does
-its keep rule the plain one's); gradients within 1e-5 of the largest
-gradient (plus 1e-6), since B2/B4 sum the terms that share a witness by
-shared-memory atomicAdds, and index_add_ on the card by global ones, each
-in a varying order; padded parts' gradients exactly 0.  The same holds for
-B7 and B8 and for the card against the CPU.  The sampling kernels' points
+its keep rule the plain one's); B2/B4's gradients bit for bit from one
+launch to the next (each row's terms are added in a fixed order), and
+within 1e-5 of the largest gradient (plus 1e-6) of the plain version on
+the card, whose index_add_ adds by global atomics in a varying order;
+padded parts' gradients exactly 0.  The same holds for B7 and B8 and for
+the card against the CPU.  The sampling kernels' points
 bit for bit and their face draws exactly, for the same reason, on the card
 and against the CPU (the plain versions take a correctly rounded square
 root, as the kernels do).  Losses on the card within 1e-5 relative of the
@@ -271,6 +272,61 @@ def test_grad_kernel_matches_plain(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(PAIR_CASES))
+def test_grad_kernel_deterministic(cuda, case):
+    """B2/B4 give the same bits on every launch: three launches on the
+    same inputs, in both modes, with and without dy, with either cotangent
+    null, bitwise equal dx and dy (a collapsed cloud sends many witnesses
+    to one row, where an order that followed the warps' timing would
+    show)."""
+    B, P, N, nparts, kind = PAIR_CASES[case]
+    x, y, n_parts = _pair_clouds(cuda, B, P, N, nparts, kind)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    g1 = torch.rand((B, P, N), generator=g, device=cuda) + 0.5
+    g2 = torch.rand((B, P, N), generator=g, device=cuda) + 0.5
+    for diagonal in (False, True):
+        _, _, w1, w2 = TC.nn_pair_cuda(x, y, n_parts, diagonal)
+        for c1, c2 in ((g1, g2), (None, g2), (g1, None)):
+            for need_dy in (True, False):
+                args = (x, y, n_parts, w1, w2, c1, c2, diagonal, need_dy)
+                runs = [TC.chamfer_grad_cuda(*args) for _ in range(3)]
+                torch.cuda.synchronize()
+                for run in runs[1:]:
+                    for k, first in zip(run, runs[0]):
+                        if first is None:
+                            assert k is None
+                            continue
+                        assert torch.equal(k.view(torch.int32),
+                                           first.view(torch.int32)), \
+                            (diagonal, c1 is None, c2 is None, need_dy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(PAIR_CASES))
+def test_grad_kernel_matches_cpu_plain_bitwise(cuda, case):
+    """B2/B4 add each row's terms in the order of the plain version on the
+    CPU (its own term, then its sources in ascending order), so they give
+    its gradients bit for bit."""
+    B, P, N, nparts, kind = PAIR_CASES[case]
+    x, y, n_parts = _pair_clouds(cuda, B, P, N, nparts, kind)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    g1 = torch.rand((B, P, N), generator=g, device=cuda) + 0.5
+    g2 = torch.rand((B, P, N), generator=g, device=cuda) + 0.5
+    for diagonal in (False, True):
+        _, _, w1, w2 = TC.nn_pair_cuda(x, y, n_parts, diagonal)
+        for c1, c2 in ((g1, g2), (None, g2), (g1, None)):
+            for need_dy in (True, False):
+                args = (x, y, n_parts, w1, w2, c1, c2, diagonal, need_dy)
+                kern = TC.chamfer_grad_cuda(*args)
+                plain = TC.chamfer_grad_plain(*[
+                    a.cpu() if isinstance(a, torch.Tensor) else a
+                    for a in args])
+                for k, p in zip(kern, plain):
+                    if p is not None:
+                        assert torch.equal(k.cpu(), p), (diagonal, need_dy)
+
+
+@pytest.mark.cuda
 def test_work_list_dense_and_pruned(cuda):
     """The whole-shape call visits every pair of valid parts by default
     and the pairs of the keep rule with `prune`, which drops pairs of
@@ -378,21 +434,22 @@ def _sampler_inputs(device, n_pieces=4, K=50, N=1000, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize('layout', ['dense', 'chunked'])
 def test_sampler_kernels_match_plain(cuda, tmp_path, layout):
-    """B5, and B6 on its face-major records, against the plain versions on
-    the same inputs and on the table itself, on the card and on the CPU,
-    bit for bit, draws included."""
+    """B5 and B6, each on its table's face-major records, against the
+    plain versions on the same inputs and on the table itself, on the card
+    and on the CPU, bit for bit, draws included."""
     tables = _soup_tables(tmp_path, layout, cuda)
     slots, u = _sampler_inputs(cuda)
     kern = TDS._sample_points(tables.table, tables.n_faces, slots, u,
                               return_draws=True)
-    plains = [TDS.sample_packed_ref(tables.table, tables.n_faces, slots, u,
+    table = TDS.jax_table(tables.table)
+    plains = [TDS.sample_packed_ref(table, tables.n_faces, slots, u,
                                     return_draws=True),
-              TDS.sample_packed_ref(tables.table.cpu(), tables.n_faces.cpu(),
+              TDS.sample_packed_ref(table.cpu(), tables.n_faces.cpu(),
                                     slots.cpu(), u.cpu(), return_draws=True)]
-    if layout == 'chunked':
-        plains.append(TDS.sample_records_plain(
-            TDS.chunk_records(tables.table), tables.n_faces, slots, u,
-            return_draws=True))
+    records_plain = TDS.sample_records_plain if layout == 'chunked' else \
+        TDS.sample_dense_records_plain
+    plains.append(records_plain(TDS.table_records(tables.table),
+                                tables.n_faces, slots, u, return_draws=True))
     for plain in plains:
         for k, p in zip(kern, plain):
             assert torch.equal(k.cpu(), p.cpu())
@@ -409,15 +466,20 @@ def test_sampler_layouts_agree_and_count(cuda, tmp_path):
     assert torch.equal(pd, pc)
     assert TDS.LAUNCHES == {'sample_dense': 1, 'sample_chunked': 1}
     with pytest.raises(ValueError, match='uniforms'):
-        TDS.sample_dense_cuda(dense.table, dense.n_faces, slots, u[:, :2])
-    # a chunked table in the JAX layout (not a view of records) raises
-    # rather than being copied each call
-    with pytest.raises(ValueError, match='records: expected a contiguous'):
-        TDS._sample_points(chunk.table.contiguous(), chunk.n_faces, slots, u)
-    with pytest.raises(ValueError, match='records: expected shape'):
-        TDS.sample_chunked_cuda(chunk.table, chunk.n_faces, slots, u)
-    # a slot outside [0, n_pieces) gives NaN points, not another piece's
+        TDS.sample_dense_cuda(TDS.table_records(dense.table), dense.n_faces,
+                              slots, u[:, :2])
     bad = torch.full_like(slots, 4)
-    assert torch.isnan(TDS.sample_chunked_cuda(
-        TDS.chunk_records(chunk.table), chunk.n_faces, bad, u)).all()
-    assert TDS.LAUNCHES == {'sample_dense': 1, 'sample_chunked': 2}
+    for t, kernel in ((dense, TDS.sample_dense_cuda),
+                      (chunk, TDS.sample_chunked_cuda)):
+        # a table in the JAX layout (not the records, nor a view of them)
+        # raises rather than being copied each call
+        table = TDS.jax_table(t.table)
+        with pytest.raises(ValueError, match='records: expected'):
+            TDS._sample_points(table.contiguous(), t.n_faces, slots, u)
+        with pytest.raises(ValueError, match='records: expected shape'):
+            kernel(table, t.n_faces, slots, u)
+        # a slot outside [0, n_pieces) gives NaN points, not another
+        # piece's
+        assert torch.isnan(kernel(TDS.table_records(t.table), t.n_faces,
+                                  bad, u)).all()
+    assert TDS.LAUNCHES == {'sample_dense': 2, 'sample_chunked': 2}

@@ -66,7 +66,7 @@ def meshes(tmp_path_factory):
 
 
 def _both_tables(paths, **kw):
-    return (tds.build_device_tables(paths, TorchMeshSampler(), **kw),
+    return (tds.build_device_tables(paths, TorchMeshSampler(), 'cpu', **kw),
             dsmp.build_device_tables(paths, MeshSampler(), **kw))
 
 
@@ -110,16 +110,23 @@ def _np_draws(table, n_faces, slots, u0):
 def test_tables_match_jax(meshes, mesh_set, layout, chunk_f):
     ours, ref = _both_tables(meshes[mesh_set], layout=layout, chunk_f=chunk_f)
     assert ours.layout == layout
-    np.testing.assert_array_equal(ours.table.numpy(), np.asarray(ref.table))
+    np.testing.assert_array_equal(tds.jax_table(ours.table).numpy(),
+                                  np.asarray(ref.table))
     np.testing.assert_array_equal(ours.n_faces.numpy(),
                                   np.asarray(ref.n_faces))
     assert ours.n_faces.dtype == torch.int32
     assert ours.slot_of == ref.slot_of and ours.fmax == ref.fmax
-    assert ours.nbytes == ref.nbytes
-    # the chunked table is the view of its face-major records, stored once
-    assert ours.table.is_contiguous() == (layout == 'dense')
-    if layout == 'chunked':
-        assert tds.chunk_records(ours.table).is_contiguous()
+    # each table is stored once, face-major: the dense one as its 48-byte
+    # records (12 floats a face, not the JAX table's 16), the chunked one
+    # as the records its table is a view of
+    assert tds.table_records(ours.table).is_contiguous()
+    if layout == 'dense':
+        n, _, fmax = ref.table.shape
+        assert ours.table.shape == (n, fmax, 3, 4)
+        assert ours.nbytes == ref.nbytes - n * fmax * 4 * 4
+    else:
+        assert not ours.table.is_contiguous()
+        assert ours.nbytes == ref.nbytes
 
 
 # (soup face counts, budget bytes, chunk width): the cases of
@@ -140,15 +147,19 @@ def test_auto_layout_matches_jax(tmp_path, faces, budget, chunk_f):
     ours, ref = _both_tables(paths, budget_bytes=budget, chunk_f=chunk_f)
     assert (ours is None) == (ref is None)
     if ref is not None:
-        assert ours.table.shape == ref.table.shape
-        np.testing.assert_array_equal(ours.table.numpy(),
+        assert ours.layout == ('chunked' if ref.table.shape[1] == 24
+                               else 'dense')
+        np.testing.assert_array_equal(tds.jax_table(ours.table).numpy(),
                                       np.asarray(ref.table))
 
 
 def test_no_paths_and_bad_layout():
-    assert tds.build_device_tables([], TorchMeshSampler()) is None
+    assert tds.build_device_tables([], TorchMeshSampler(), 'cpu') is None
     with pytest.raises(ValueError, match='layout'):
-        tds.build_device_tables([], TorchMeshSampler(), layout='ragged')
+        tds.build_device_tables([], TorchMeshSampler(), 'cpu',
+                                layout='ragged')
+    with pytest.raises(TypeError, match='device'):  # no default device
+        tds.build_device_tables([], TorchMeshSampler())
 
 
 # ---------------------------------------------------------------------------
@@ -212,9 +223,10 @@ def test_chunked_matches_dense_bitwise(meshes):
     (sub-chunk) and 520 (5 chunks) faces; a chunked draw that took the
     alias triangle names the same face as the dense draw's alias."""
     s = TorchMeshSampler()
-    dense = tds.build_device_tables(meshes['soups'], s, layout='dense')
-    chunk = tds.build_device_tables(meshes['soups'], s, layout='chunked',
-                                    chunk_f=128)
+    dense = tds.build_device_tables(meshes['soups'], s, 'cpu',
+                                    layout='dense')
+    chunk = tds.build_device_tables(meshes['soups'], s, 'cpu',
+                                    layout='chunked', chunk_f=128)
     assert chunk.table.shape[0] == 10  # 3 + 1 + 1 + 5 chunks
     assert tuple(chunk.n_faces.shape) == (3 + 5, 4)
     slots = torch.tensor([0, 3, 1, 2, 3, 0], dtype=torch.int32)
@@ -226,8 +238,9 @@ def test_chunked_matches_dense_bitwise(meshes):
     assert torch.equal(pd, pc)
     taken = (fc < 0).nonzero(as_tuple=True)
     assert 0 < len(taken[0]) < fc.numel()  # both branches drawn
-    alias = dense.table[slots.long()[:, None], tds._ROW_ALIAS,
-                        torch.where(fc < 0, -1 - fc, fc).long()]
+    alias = tds.jax_table(dense.table)[
+        slots.long()[:, None], tds._ROW_ALIAS,
+        torch.where(fc < 0, -1 - fc, fc).long()]
     expect = torch.where(fc < 0, (alias + 0.5).to(torch.int32), fc)
     assert torch.equal(fd, expect)
 
@@ -242,7 +255,7 @@ def test_records_match_jax_columns(meshes, mesh_set, chunk_f):
     ours, ref = _both_tables(meshes[mesh_set], layout='chunked',
                              chunk_f=chunk_f)
     table, meta = np.asarray(ref.table), np.asarray(ref.n_faces)
-    records = tds.chunk_records(ours.table).numpy()
+    records = tds.table_records(ours.table).numpy()
     assert records.shape == (table.shape[0], chunk_f, tds._N_ROWS_C)
     flat = records.reshape(-1, tds._N_ROWS_C)
     for slot in range(meta.shape[1]):
@@ -273,7 +286,7 @@ def test_records_sampler_matches_chunked_and_jax(meshes, mesh_set,
         0, len(meshes[mesh_set]), K).astype(np.int32)
     u = _uniforms(K, 384, seed=6)
     args = (ours.n_faces, torch.tensor(slots), torch.tensor(u[:, :3, :n]))
-    got = tds.sample_records_plain(tds.chunk_records(ours.table), *args,
+    got = tds.sample_records_plain(tds.table_records(ours.table), *args,
                                    return_draws=return_draws)
     want = tds.sample_chunked_plain(ours.table, *args,
                                     return_draws=return_draws)
@@ -290,6 +303,78 @@ def test_records_sampler_matches_chunked_and_jax(meshes, mesh_set,
     j_ref = np.asarray(dsmp.sample_packed_ref(
         ref.table, ref.n_faces, jnp.asarray(slots), jnp.asarray(u), n))
     np.testing.assert_array_equal(got.numpy(), j_ref)
+
+
+@pytest.mark.parametrize('mesh_set', ['cubes', 'soups'])
+def test_dense_records_match_jax_table(meshes, mesh_set):
+    """Every face's 48-byte dense record, found as the kernel finds it
+    (record s * Fmax + f of slot s), holds rows 0-10 of the JAX dense
+    table's column of that face (triangle, prob, alias), then one zero;
+    `jax_table` gives the JAX table back, array for array."""
+    ours, ref = _both_tables(meshes[mesh_set], layout='dense')
+    table = np.asarray(ref.table)
+    records = tds.table_records(ours.table)
+    assert records is ours.table and records.is_contiguous()
+    assert records.shape == (table.shape[0], table.shape[2], 3, 4)
+    flat = records.numpy().reshape(-1, 12)
+    for slot in range(table.shape[0]):
+        got = flat[slot * table.shape[2] + np.arange(table.shape[2])]
+        np.testing.assert_array_equal(got[:, :dsmp._ROW_ALIAS + 1],
+                                      table[slot, :dsmp._ROW_ALIAS + 1].T)
+        assert not got[:, dsmp._ROW_ALIAS + 1:].any()
+    assert not table[:, dsmp._ROW_ALIAS + 1:].any()
+    np.testing.assert_array_equal(tds.jax_table(records).numpy(), table)
+
+
+@pytest.mark.parametrize('return_draws', [False, True])
+@pytest.mark.parametrize('mesh_set', ['cubes', 'soups'])
+def test_dense_records_sampler_matches_table_and_jax(meshes, mesh_set,
+                                                     return_draws):
+    """The plain version of the dense kernel (`sample_dense_records_plain`,
+    on the records) equals `sample_dense_plain` (on the table) bit for bit,
+    and the JAX `sample_packed_ref` on the same uniforms; `_sample_points`
+    takes it on a dense table."""
+    ours, ref = _both_tables(meshes[mesh_set], layout='dense')
+    K, n = 9, 300
+    slots = np.random.default_rng(8).integers(
+        0, len(meshes[mesh_set]), K).astype(np.int32)
+    u = _uniforms(K, 384, seed=9)
+    args = (ours.n_faces, torch.tensor(slots), torch.tensor(u[:, :3, :n]))
+    got = tds.sample_dense_records_plain(ours.table, *args,
+                                         return_draws=return_draws)
+    want = tds.sample_dense_plain(tds.jax_table(ours.table), *args,
+                                  return_draws=return_draws)
+    via = tds._sample_points(ours.table, *args, return_draws=return_draws)
+    if return_draws:
+        (got, draws), (want, want_draws), (via, via_draws) = got, want, via
+        np.testing.assert_array_equal(draws.numpy(), want_draws.numpy())
+        np.testing.assert_array_equal(draws.numpy(), via_draws.numpy())
+        np.testing.assert_array_equal(
+            draws.numpy(), _np_draws(np.asarray(ref.table),
+                                     np.asarray(ref.n_faces), slots,
+                                     u[:, 0, :n]))
+    assert torch.equal(got, want) and torch.equal(got, via)
+    j_ref = np.asarray(dsmp.sample_packed_ref(
+        ref.table, ref.n_faces, jnp.asarray(slots), jnp.asarray(u), n))
+    np.testing.assert_array_equal(got.numpy(), j_ref)
+
+
+def test_dense_kernel_takes_records():
+    """The dense kernel's wrapper takes the records ([*, Fmax, 3, 4]) and
+    refuses a CPU tensor; a dense table off the CPU, records or the JAX
+    layout, goes to the kernel, which refuses what is not a CUDA tensor,
+    rather than taking another path."""
+    records = torch.zeros((2, 8, 3, 4))
+    n_faces = torch.full((2, ), 8, dtype=torch.int32)
+    slots = torch.zeros(1, dtype=torch.int32)
+    u = torch.zeros((1, 3, 4))
+    with pytest.raises(ValueError, match='records: expected a CUDA tensor'):
+        tds.sample_dense_cuda(records, n_faces, slots, u)
+    for table in (torch.zeros((2, 8, 3, 4), device='meta'),
+                  torch.zeros((2, tds._N_ROWS, 8), device='meta')):
+        with pytest.raises(ValueError,
+                           match='records: expected a CUDA tensor'):
+            tds._sample_points(table, n_faces, slots, u)
 
 
 def test_chunked_kernel_takes_records():
@@ -309,7 +394,8 @@ def test_chunked_kernel_takes_records():
 
 
 def test_sample_and_expand_is_seeded(meshes):
-    tables = tds.build_device_tables(meshes['cubes'], TorchMeshSampler())
+    tables = tds.build_device_tables(meshes['cubes'], TorchMeshSampler(),
+                                     'cpu')
     slots = torch.tensor([0, 1, 2, 2, 0], dtype=torch.int32)
     counts = torch.tensor([2, 3], dtype=torch.int32)
 
@@ -352,7 +438,7 @@ def _datasets(root, **kw):
               num_points=N, max_num_part=P, **kw)
     ours, ref = tgeo.GeometryPartDataset(**kw), JaxDataset(**kw)
     ours._device_tables = tds.build_device_tables(ours.all_mesh_paths(),
-                                                  ours.sampler)
+                                                  ours.sampler, 'cpu')
     ref._device_tables = dsmp.build_device_tables(ref.all_mesh_paths(),
                                                   ref.sampler)
     return ours, ref
