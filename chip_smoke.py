@@ -42,23 +42,37 @@ Phases, each printing its own line(s); any failure exits non-zero:
      memory rate; the samplers' bytes counted on the run's draws); a
      kernel timed under its bound fails the run;
   4. slice: one PN-Transformer MoN loss and its gradients on the card
-     against the same step on the CPU (plain chamfer), same weights; then
-     repulsion_cd_loss forward and backward at flagship shapes through B7,
-     its scan route against its dense route, the kernel against the plain
-     version on the card, and the card against the CPU at a small size.
-     The launch counters are reset just before the repulsion runs and read
-     just after: they give B7's launches;
+     against the same step on the CPU (plain chamfer), same weights, with
+     the quaternion and with the 6D pose head, and the eval logs of the
+     same batch with the full metric set, card against CPU (Euler metrics
+     within 1e-3 degrees, the rest within 1e-5); then repulsion_cd_loss
+     forward and backward at flagship shapes through B7, its scan route
+     against its dense route, the kernel against the plain version on the
+     card, and the card against the CPU at a small size.  The launch
+     counters are reset just before the repulsion runs and read just
+     after: they give B7's launches;
   5. main path: scripts/train_torch.py's main on the flagship config at
      full width on a synthetic everyday set, five runs of three epochs
      (12 steps of batch 32) and a validation each: the host wire
      (data.device_sampling False), the device-sampling wire with the auto
      table layout, with the dense layout, the host wire again, and the
-     dense layout through the unfused chamfer route (fused mode 'off').
-     Each run resets the launch counters and requires its route's kernels
-     to have launched in training and in validation, and the other
-     route's never.
-The line before the last is a JSON summary of the kernels; the last line
-is {"ok": true, "device": {...}}.
+     dense layout through the unfused chamfer route (fused mode 'off');
+     then a sixth run of one epoch with the 6D pose head.  Each run resets
+     the launch counters and requires its route's kernels to have launched
+     in training and in validation, and the other route's never; each
+     gates the full val metric set and its one checkpoint, and prints the
+     checkpoint's save time and the val export's;
+  6. resume: the flagship on the dense slot wire, fused route, 2 epochs
+     with a validation and a checkpoint each (counters reset just before,
+     read at the end): scripts/test_torch.py from the second checkpoint
+     bitwise against the trainer's test(); a new Trainer on the same
+     ckp_dir starts at epoch 2 with every parameter, buffer and Adam
+     moment bitwise; the checkpoint loads into a CPU trainer, whose save
+     loads back onto the card, bitwise; one more epoch in both trainers
+     from the same generator states gives bitwise the same losses and
+     weights.  Save, resume and val-export times printed.
+The smoke prints its total wall time; the line before the last is a JSON
+summary of the kernels; the last line is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -843,32 +857,45 @@ def phase_sampler(data_dir, tmp):
     return results
 
 
-def phase_slice():
-    """MoN loss + gradients of one small flagship-width batch on the card
-    (kernels) against the CPU (plain chamfer), same f32 weights."""
+SLICE_COUNTS = [12, 5]
+EULER_KEYS = ('rot_mse', 'rot_rmse', 'rot_mae')
+EVAL_KEYS = ('part_acc',) + tuple(f'{k}_{m}' for k in ('trans', 'rot')
+                                  for m in ('mse', 'rmse', 'mae'))
+
+
+def _slice_batch():
+    """One small flagship batch on the card: parts of SLICE_COUNTS shapes,
+    random unit quaternions and translations."""
+    x, _, valids = _clouds(SLICE_COUNTS, 3)
+    b = len(SLICE_COUNTS)
+    g = torch.Generator(device='cuda').manual_seed(4)
+    return {
+        'part_pcs': x, 'part_valids': valids,
+        'part_quat': torch.nn.functional.normalize(
+            torch.randn((b, P, 4), generator=g, device='cuda'), dim=-1)
+        * valids[..., None],
+        'part_trans': 0.3 * torch.randn((b, P, 3), generator=g,
+                                        device='cuda') * valids[..., None],
+        'part_label': torch.zeros((b, P, 0), device='cuda'),
+        'instance_label': torch.zeros((b, P, 0), device='cuda'),
+    }
+
+
+def _slice_rot_type(rot_type, batch):
+    """MoN loss + gradients of the batch in train mode, then the eval logs
+    with the full metric set, on the card (kernels) against the CPU (plain
+    chamfer), the same f32 weights and batch-norm statistics."""
     from multi_part_assembly_tpu_torch.models import build_model
     from multi_part_assembly_tpu_torch.train.core import mon_loss
     from multi_part_assembly_tpu_torch.utils import load_cfg_file
     cfg = load_cfg_file(FLAGSHIP_CFG)
     cfg.exp.bf16 = False
+    cfg.model.rot_type = rot_type
     torch.manual_seed(0)
     model = build_model(cfg).train()
     for m in model.modules():
         if isinstance(m, torch.nn.Dropout):
             m.p = 0.0
-    counts = [12, 5]
-    x, _, valids = _clouds(counts, 3)
-    g = torch.Generator(device='cuda').manual_seed(4)
-    batch = {
-        'part_pcs': x, 'part_valids': valids,
-        'part_quat': torch.nn.functional.normalize(
-            torch.randn((2, P, 4), generator=g, device='cuda'), dim=-1)
-        * valids[..., None],
-        'part_trans': 0.3 * torch.randn((2, P, 3), generator=g,
-                                        device='cuda') * valids[..., None],
-        'part_label': torch.zeros((2, P, 0), device='cuda'),
-        'instance_label': torch.zeros((2, P, 0), device='cuda'),
-    }
     out = {}
     for device in ('cpu', 'cuda'):
         m = model.to(device)
@@ -881,11 +908,48 @@ def phase_slice():
     (l_cpu, g_cpu), (l_gpu, g_gpu) = out['cpu'], out['cuda']
     rel_loss = abs(l_gpu - l_cpu) / abs(l_cpu)
     rel_grad = float((g_gpu - g_cpu).norm() / g_cpu.norm())
-    print(f'slice: mon_loss card {l_gpu:.7f} vs CPU {l_cpu:.7f} (rel '
-          f'{rel_loss:.2e}, tolerance 1e-4); gradient rel. L2 diff '
+    print(f'slice[{rot_type}]: mon_loss card {l_gpu:.7f} vs CPU {l_cpu:.7f} '
+          f'(rel {rel_loss:.2e}, tolerance 1e-4); gradient rel. L2 diff '
           f'{rel_grad:.2e} (tolerance 1e-3)', flush=True)
     if not (math.isfinite(l_gpu) and rel_loss <= 1e-4 and rel_grad <= 1e-3):
-        raise AssertionError('the card disagrees with the CPU on one step')
+        raise AssertionError(f'the card disagrees with the CPU on one step '
+                             f'({rot_type})')
+    logs = {}
+    model.eval()
+    with torch.no_grad():
+        for device in ('cpu', 'cuda'):
+            m = model.to(device)
+            _, lg = mon_loss(m, {k: v.to(device) for k, v in batch.items()},
+                             cfg=cfg, training=False, reduce=False)
+            logs[device] = {k: v.cpu().double() for k, v in lg.items()}
+    worst = {}
+    for k, cpu in logs['cpu'].items():
+        gpu = logs['cuda'][k]
+        if k in EULER_KEYS:  # degrees: rot_mse compared as its root
+            root = (lambda t: t.sqrt()) if k == 'rot_mse' else \
+                (lambda t: t)
+            worst[k] = (float((root(gpu) - root(cpu)).abs().max()), 1e-3)
+        else:  # 1e-5, relative to values above 1
+            worst[k] = (float(((gpu - cpu).abs() /
+                               cpu.abs().clamp(min=1.0)).max()), 1e-5)
+    missing = [k for k in EVAL_KEYS if k not in logs['cuda']]
+    finite = all(bool(torch.isfinite(v).all()) for v in logs['cuda'].values())
+    print(f'slice[{rot_type}]: eval logs of one batch, card vs CPU, largest '
+          f'difference (tolerance): ' + ', '.join(
+              f'{k} {d:.2e} ({t:g})' for k, (d, t) in sorted(worst.items())),
+          flush=True)
+    if missing or not finite or any(d > t for d, t in worst.values()):
+        raise AssertionError(f'eval logs ({rot_type}): missing {missing}, '
+                             f'finite {finite}, or the card disagrees with '
+                             'the CPU')
+
+
+def phase_slice():
+    """One small flagship-width batch, quaternion and 6D heads: the MoN
+    loss and gradients, and the eval metrics, card against CPU."""
+    batch = _slice_batch()
+    for rot_type in ('quat', 'rmat'):
+        _slice_rot_type(rot_type, batch)
 
 
 def _rel(a, b):
@@ -1006,7 +1070,57 @@ RUNS = [
      'auto'),
     ('unfused chamfer route, dense layout', DENSE, 'dense', 'sample_dense',
      'off'),
+    # the 6D pose head: B1-B4 take points rotated by matrices
+    ('6D rotations, dense layout', DENSE + [
+        'model.rot_type', 'rmat', 'exp.num_epochs', '1', 'exp.val_every',
+        '1'], 'dense', 'sample_dense', 'auto'),
 ]
+
+
+class _Timed:
+    """Wall seconds of each call of some Trainer methods, the methods
+    wrapped while the context is open."""
+
+    def __init__(self, *names):
+        from multi_part_assembly_tpu_torch.train.trainer import Trainer
+        self.cls, self.names = Trainer, names
+        self.seconds = {name: [] for name in names}
+
+    def __enter__(self):
+        self.saved = {name: getattr(self.cls, name) for name in self.names}
+        for name, fn in self.saved.items():
+            setattr(self.cls, name, self._wrap(name, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                self.seconds[name].append(time.perf_counter() - t0)
+        return timed
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.cls, name, fn)
+
+    def ms(self, name):
+        return ', '.join(f'{1000 * t:.1f}' for t in self.seconds[name])
+
+
+def _check_metrics(tag, metrics, prefix='val'):
+    """The full metric set of a validation, present and finite."""
+    keys = [f'{prefix}/{k}' for k in EVAL_KEYS]
+    missing = [k for k in keys if k not in metrics]
+    bad = [k for k, v in metrics.items() if not math.isfinite(v)]
+    print(f'{tag}: ' + ', '.join(
+        f'{k} {metrics[k]:.6f}' for k in keys if k in metrics), flush=True)
+    if missing or bad:
+        raise AssertionError(f'{tag}: missing metrics {missing}, '
+                             f'non-finite {bad}')
 
 
 def _train_run(index, data_dir, tmp):
@@ -1030,17 +1144,18 @@ def _train_run(index, data_dir, tmp):
     Trainer.validate = counted_validate
     C.set_fused_mode(mode)
     try:
-        torch.cuda.reset_peak_memory_stats()
-        C.reset_launches()
-        DS.reset_launches()
-        t0 = time.perf_counter()
-        trainer = train_torch.main([
-            '--cfg_file', FLAGSHIP_CFG, '--ckp_dir', run_dir,
-            '--opts', 'data.data_dir', data_dir, 'exp.num_epochs', '3',
-            'exp.val_every', '3', *opts])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        totals = _launches()
+        with _Timed('save_checkpoint', '_export_val_vis') as timed:
+            torch.cuda.reset_peak_memory_stats()
+            C.reset_launches()
+            DS.reset_launches()
+            t0 = time.perf_counter()
+            trainer = train_torch.main([
+                '--cfg_file', FLAGSHIP_CFG, '--ckp_dir', run_dir,
+                '--opts', 'data.data_dir', data_dir, 'exp.num_epochs', '3',
+                'exp.val_every', '3', *opts])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            totals = _launches()
     finally:
         Trainer.validate = validate
         C.set_fused_mode(prev_mode)
@@ -1073,6 +1188,14 @@ def _train_run(index, data_dir, tmp):
     print(f'{tag}: train losses {["%.5f" % v for v in losses]}; val '
           f'part_acc {trainer.metrics["val/part_acc"]:.4f}, val loss '
           f'{trainer.metrics["val/loss"]:.5f}', flush=True)
+    _check_metrics(tag, trainer.metrics)
+    saved = trainer.ckpt_mgr.all_steps()
+    print(f'{tag}: checkpoint save {timed.ms("save_checkpoint")} ms, val '
+          f'export of {trainer.cfg.exp.val_sample_vis} shapes a split '
+          f'{timed.ms("_export_val_vis")} ms; checkpoints kept {saved}',
+          flush=True)
+    if saved != [trainer.cfg.exp.num_epochs - 1]:
+        raise AssertionError(f'{tag}: expected one checkpoint, got {saved}')
     print(f'{tag}: kernel launches in training {launches["train"]}, in '
           f'validation {launches["val"]}', flush=True)
 
@@ -1125,7 +1248,155 @@ def phase_main(data_dir, tmp):
     return totals
 
 
+def _state(trainer):
+    """Every parameter, buffer and optimizer tensor of a trainer, as
+    (name, tensor) on the CPU."""
+    out = list(trainer.model.state_dict().items())
+    opt = trainer.optimizer.state_dict()
+    for pid, st in sorted(opt['state'].items()):
+        out += [(f'opt.{pid}.{k}', v) for k, v in sorted(st.items())]
+    return [(n, v.detach().cpu()) for n, v in out]
+
+
+def _differing(a, b):
+    """Names of the tensors of two _state lists that are not bitwise equal
+    (dtype and shape included)."""
+    if [n for n, _ in a] != [n for n, _ in b]:
+        return ['<names>']
+    return [n for (n, x), (_, y) in zip(a, b)
+            if x.dtype != y.dtype or not torch.equal(x, y)]
+
+
+def _adam_steps_on_cpu(trainer):
+    return all(st['step'].device.type == 'cpu' and
+               st['step'].dtype == torch.float32
+               for st in trainer.optimizer.state.values())
+
+
+def _epoch_losses(trainer, epoch):
+    trainer.train_loader.set_epoch(epoch)
+    return [trainer.train_step(b)['loss'] for b in trainer.train_loader]
+
+
+def phase_resume(data_dir, tmp):
+    """The flagship on the dense slot wire, fused route: 2 epochs with a
+    validation and a checkpoint each; test_torch.py from the second
+    checkpoint against the trainer's test(), bit for bit; a new Trainer on
+    the same ckp_dir resumes at epoch 2 with every parameter, buffer and
+    Adam moment bitwise; the checkpoint loads into a CPU trainer and back;
+    then one more epoch in each trainer from the same generator states
+    gives bitwise the same losses and weights.  Returns the launch counts
+    of the run, reset just before it."""
+    import test_torch
+    import train_torch
+    from multi_part_assembly_tpu_torch.train.trainer import Trainer
+    ckp = os.path.join(tmp, 'resume')
+    opts = ['data.data_dir', data_dir, 'exp.num_epochs', '2',
+            'exp.val_every', '1', *DENSE]
+    cfg = train_torch.build_cfg(train_torch.parse_args(
+        ['--cfg_file', FLAGSHIP_CFG, '--ckp_dir', ckp, '--opts', *opts]))
+    C.reset_launches()
+    DS.reset_launches()
+    with _Timed('save_checkpoint', '_export_val_vis', '_try_resume') as timed:
+        first = Trainer(cfg, 'cuda', ckp_dir=ckp)
+        t0 = time.perf_counter()
+        first.fit()
+        fit_s = time.perf_counter() - t0
+        kept = first.ckpt_mgr.all_steps()
+        _check_metrics('resume[fit]', first.metrics)
+        if kept != [0, 1] or first.tables['train'].layout != 'dense':
+            raise AssertionError(f'resume: expected checkpoints [0, 1] on '
+                                 f'the dense wire, got {kept}')
+        # test_torch.py in-process against the trainer's own test()
+        step_dir = os.path.join(ckp, 'models', '1')
+        first.generator.manual_seed(cfg.exp.seed)
+        ref = first.test()
+        got = test_torch.main(['--cfg_file', FLAGSHIP_CFG, '--device',
+                               'cuda', '--weight', step_dir, '--opts', *opts])
+        diff = sorted(k for k in ref if got.get(k) != ref[k])
+        print(f'resume: test_torch.py --weight models/1 against the '
+              f'trainer\'s test(): {len(ref)} test/* metrics, bitwise '
+              f'different {diff}', flush=True)
+        if diff or set(got) != set(ref):
+            raise AssertionError(f'resume: test_torch.py differs on {diff}')
+        _check_metrics('resume[test]', got, prefix='test')
+
+        t0 = time.perf_counter()
+        second = Trainer(cfg, 'cuda', ckp_dir=ckp)
+        build_s = time.perf_counter() - t0
+        differ = _differing(_state(second), _state(first))
+        print(f'resume: new Trainer on the ckp_dir: start_epoch '
+              f'{second.start_epoch}, step {second.step} (first trainer '
+              f'{first.step}); tensors not bitwise equal to the first '
+              f'trainer\'s: {differ} of {len(_state(first))}; Adam steps '
+              f'on the CPU in f32 {_adam_steps_on_cpu(second)}', flush=True)
+        if second.start_epoch != 2 or second.step != first.step or differ \
+                or not _adam_steps_on_cpu(second):
+            raise AssertionError('resume: the resumed state differs')
+
+        # card -> CPU -> card: the checkpoint loads into a CPU trainer,
+        # whose own save loads back onto the card
+        cpu_cfg = cfg.clone()
+        cpu_cfg.defrost()
+        cpu_cfg.data.device_sampling = False
+        cpu = Trainer(cpu_cfg, 'cpu', ckp_dir=os.path.join(tmp, 'cpu'),
+                      resume=False, quiet=True)
+        cpu.load_weights(step_dir)
+        cpu_differ = _differing(_state(cpu), _state(first))
+        cpu.save_checkpoint(1, first.metrics)
+        second.load_weights(os.path.join(tmp, 'cpu', 'models', '1'))
+        back_differ = _differing(_state(second), _state(first))
+        print(f'resume: card checkpoint loaded on the CPU, tensors not '
+              f'bitwise equal {cpu_differ}, Adam steps on the CPU in f32 '
+              f'{_adam_steps_on_cpu(cpu)}; the CPU trainer\'s checkpoint '
+              f'loaded on the card: not bitwise equal {back_differ}, Adam '
+              f'steps on the CPU in f32 {_adam_steps_on_cpu(second)}',
+              flush=True)
+        if cpu_differ or back_differ or not _adam_steps_on_cpu(cpu) or \
+                not _adam_steps_on_cpu(second):
+            raise AssertionError('resume: a checkpoint changed crossing '
+                                 'devices')
+        cpu.close()
+
+        # one more epoch in each from the same generator states
+        states = (first.generator.get_state(), torch.get_rng_state(),
+                  torch.cuda.get_rng_state())
+        losses = _epoch_losses(first, 2)
+        second.generator.set_state(states[0])
+        torch.set_rng_state(states[1])
+        torch.cuda.set_rng_state(states[2])
+        again = _epoch_losses(second, 2)
+        torch.cuda.synchronize()
+    launches = _launches()
+    after = _differing(_state(second), _state(first))
+    print(f'resume: epoch 2 in both trainers from the same generator '
+          f'states: losses {["%.7f" % v for v in losses]} and '
+          f'{["%.7f" % v for v in again]}, bitwise equal {again == losses}; '
+          f'tensors not bitwise equal after it: {after}', flush=True)
+    print(f'resume: fit of 2 epochs {fit_s:.2f} s; checkpoint saves (the '
+          f'fit\'s two, then the CPU trainer\'s) '
+          f'{timed.ms("save_checkpoint")} ms; val export '
+          f'{timed.ms("_export_val_vis")} ms a validation; resume (load '
+          f'and restore) {1000 * timed.seconds["_try_resume"][-1]:.1f} ms '
+          f'within a Trainer build of {build_s:.2f} s', flush=True)
+    if again != losses or after or not all(map(math.isfinite, losses)):
+        raise AssertionError('resume: the resumed epoch differs from the '
+                             'uninterrupted one')
+    print(f'resume: kernel launches {launches}', flush=True)
+    for key in FUSED_KEYS + ('sample_dense', ):
+        if launches[key] <= 0:
+            raise AssertionError(f'resume: {key} never launched')
+    for key in ('nn_off', 'nn_dir', 'sample_chunked'):
+        if launches[key]:
+            raise AssertionError(f'resume: {key} launched {launches[key]} '
+                                 'times')
+    first.close()
+    second.close()
+    return launches
+
+
 def main():
+    t_start = time.perf_counter()
     phase_device()
     with tempfile.TemporaryDirectory() as tmp:
         phase_build(tmp)
@@ -1142,6 +1413,8 @@ def main():
         phase_slice()
         repulsion_launches = phase_repulsion()
         launches = phase_main(data_dir, tmp)
+        for k, v in phase_resume(data_dir, tmp).items():
+            launches[k] += v
     # B7 runs on no training path: its count is the repulsion runs'
     launches['nn_dir'] = repulsion_launches['nn_dir']
     # no single PyTorch call returns a nearest neighbour with its index, a
@@ -1158,6 +1431,8 @@ def main():
         if row['bound_ms'] > row['ms']:
             raise AssertionError(f'{row["name"]}: {row["ms"]:.4f} ms is under '
                                  f'its bound {row["bound_ms"]:.4f} ms')
+    print(f'smoke: total wall time {time.perf_counter() - t_start:.1f} s',
+          flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -9,7 +9,9 @@ tests/test_golden_forward.py:50-120:
   - q/k/v kernels [C, H, hd] pack into in_proj_weight [3C, C];
   - the out kernel [H, hd, C] becomes out_proj.weight [C, C];
   - BN scale/bias/mean/var become weight/bias/running_mean/running_var,
-    LayerNorm scale/bias become weight/bias.
+    LayerNorm scale/bias become weight/bias;
+  - the pose head's rot_head is [4, 128] for quaternions and [6, 128] for
+    the 6D head (`rot_type='rmat'`), as its kernel's shape gives it.
 """
 
 import numpy as np

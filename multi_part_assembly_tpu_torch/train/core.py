@@ -11,7 +11,7 @@ or eval mode is the model's own; `training` picks the loss semantics
 import torch
 
 from ..models.modules.norm import MaskedBatchNorm
-from ..utils.eval_utils import calc_part_acc
+from ..utils.eval_utils import calc_part_acc, rot_metrics, trans_metrics
 from ..utils.loss import (rot_cosine_loss, rot_points_cd_loss,
                           rot_points_l2_loss, shape_cd_loss, trans_l2_loss)
 from ..utils.rotation import Rotation3D
@@ -37,8 +37,9 @@ def loss_weights_from_cfg(cfg_loss):
 def calc_loss(pred_rot_raw, pred_trans, data_dict, *, rot_type, semantic,
               training, use_rot_loss, use_rot_pt_l2_loss,
               with_metrics=False):
-    """Losses (and, at eval, part accuracy) of one prediction
-    (JAX core.py:45-108).  Returns a dict of [B] tensors."""
+    """Losses (and, at eval, part accuracy and the translation and rotation
+    errors) of one prediction (JAX core.py:45-108).  Returns a dict of [B]
+    tensors."""
     if semantic:
         raise NotImplementedError(
             'semantic assembly (part matching) is not ported yet')
@@ -64,6 +65,11 @@ def calc_loss(pred_rot_raw, pred_trans, data_dict, *, rot_type, semantic,
     if with_metrics:
         loss_dict['part_acc'] = calc_part_acc(part_pcs, pred_trans, new_trans,
                                               pred_rot, new_rot, valids)
+        for metric in ('mse', 'rmse', 'mae'):
+            loss_dict[f'trans_{metric}'] = trans_metrics(
+                pred_trans, new_trans, valids, metric)
+            loss_dict[f'rot_{metric}'] = rot_metrics(
+                pred_rot, new_rot, valids, metric)
     return loss_dict
 
 

@@ -1,19 +1,24 @@
-"""A minimal trainer: build, train epochs, validate, log.
+"""Training and evaluation harness.
 
-Port of the core of multi_part_assembly_tpu/train/trainer.py (fit,
-train_epoch, the batch-size-weighted eval loop, JSONL logging).  Batches
-come over the host wire or, with `data.device_sampling`, over the slot
-wire, whose points the card samples itself (JAX trainer.py:267-311 and
-:537-548, single device).  One train step (JAX parallel/mesh.py:122-140)
-augments the batch on the device, runs `mon_loss`, takes its gradient and
-an Adam step at the scheduled lr.  Checkpoints, auto-resume, data
-parallelism and the visual export are not ported yet.
+Port of multi_part_assembly_tpu/train/trainer.py for one device: the epoch
+loop, validation every `val_every` epochs with batch-size-weighted metric
+means, the sampled-assembly PLY export of each validation, checkpoints that
+keep the 5 best epochs by `val/part_acc` with auto-resume from the newest,
+weight loading, the test loop, and JSONL logging with an optional wandb
+mirror.  Batches come over the host wire or, with `data.device_sampling`,
+over the slot wire, whose points the card samples itself (JAX
+trainer.py:267-311 and :537-548).  One train step (JAX parallel/mesh.py:
+122-140) augments the batch on the device, runs `mon_loss`, takes its
+gradient and an Adam step at the scheduled lr.  The TPU runtime's
+execution kicks and host-to-device probe have no counterpart here; data
+parallelism is not ported yet.
 """
 
 import json
 import os
 import time
 
+import numpy as np
 import torch
 
 from ..datasets.device_sampler import sample_and_expand
@@ -21,34 +26,108 @@ from ..datasets.geometry import (augment_geometry_batch,
                                  build_geometry_dataloader,
                                  enable_device_sampling)
 from ..models import build_model
+from .checkpoint import CheckpointManager, load_state
 from .core import mon_loss
 from .state import build_optimizer, clip_gradients
 
-__all__ = ['Trainer', 'JSONLLogger', 'device_sampling_enabled']
+__all__ = ['Trainer', 'JSONLLogger', 'WandbLogger', 'build_logger',
+           'device_sampling_enabled']
 
 _SAMPLING_WORDS = {'true': True, 'false': False, 'auto': 'auto'}
 
 
 class JSONLLogger:
-    """One JSON object per line, optionally echoed to stdout."""
+    """Metric sink: one JSON object per line, and the `echo` keys printed
+    unless `quiet` (JAX trainer.py:120-148)."""
 
-    def __init__(self, log_dir, name='metrics'):
+    def __init__(self, log_dir, name='metrics', quiet=False):
         os.makedirs(log_dir, exist_ok=True)
         self.path = os.path.join(log_dir, f'{name}.jsonl')
+        self.quiet = quiet
         self._f = open(self.path, 'a')
 
-    def log(self, record, step=None, echo=False):
-        record = dict(record)
+    def log(self, record, step=None, echo=None):
+        record = {k: (float(v) if hasattr(v, 'item') else v)
+                  for k, v in record.items()}
         if step is not None:
             record['step'] = int(step)
         self._f.write(json.dumps(record) + '\n')
         self._f.flush()
-        if echo:
-            print('; '.join(f'{k}: {v:.6f}' for k, v in sorted(
-                record.items()) if isinstance(v, float)), flush=True)
+        if echo and not self.quiet:
+            print('; '.join(f'{k}: {record[k]:.6f}' for k in echo
+                            if k in record), flush=True)
+
+    def log_assemblies(self, tag, gt_pcs, pred_pcs_list, valids, colors,
+                       step=None, max_shapes=3):
+        """Scalar sinks keep no assemblies: the PLY export of
+        `Trainer._export_val_vis` is their record on disk."""
 
     def close(self):
         self._f.close()
+
+
+class WandbLogger(JSONLLogger):
+    """The JSONL sink with a wandb mirror (JAX trainer.py:151-207).  Without
+    the `wandb` package, or when its init fails, it logs to JSONL only."""
+
+    def __init__(self, log_dir, name='metrics', quiet=False,
+                 project='multi_part_assembly_tpu', run_name=None,
+                 config=None):
+        super().__init__(log_dir, name=name, quiet=quiet)
+        self._wandb = None
+        try:
+            import wandb
+            self._wandb = wandb.init(project=project, name=run_name,
+                                     dir=log_dir, config=config,
+                                     resume='allow')
+        except Exception as e:  # absent package, offline, failed login
+            print(f'wandb unavailable ({e!r}); logging to JSONL only',
+                  flush=True)
+
+    def log(self, record, step=None, echo=None):
+        super().log(record, step=step, echo=echo)
+        if self._wandb is not None:
+            numeric = {k: float(v) for k, v in record.items()
+                       if isinstance(v, (int, float)) or hasattr(v, 'item')}
+            self._wandb.log(numeric,
+                            step=None if step is None else int(step))
+
+    def log_assemblies(self, tag, gt_pcs, pred_pcs_list, valids, colors,
+                       step=None, max_shapes=3):
+        """The sampled assemblies as wandb.Object3D clouds of xyzrgb rows:
+        the GT and each prediction of up to `max_shapes` shapes."""
+        if self._wandb is None:
+            return
+        import wandb
+
+        from ..utils.misc import colorize_part_pc, to_numpy
+        gt, valids = to_numpy(gt_pcs), to_numpy(valids)
+        colors = np.asarray(colors)
+        preds = [to_numpy(p) for p in pred_pcs_list]
+        objs = {}
+        for b in range(min(max_shapes, gt.shape[0])):
+            p = max(1, int(valids[b].sum()))
+            objs[f'{tag}/gt_{b}'] = wandb.Object3D(
+                colorize_part_pc(gt[b, :p], colors).reshape(-1, 6))
+            for s, pred in enumerate(preds):
+                objs[f'{tag}/pred{s}_{b}'] = wandb.Object3D(
+                    colorize_part_pc(pred[b, :p], colors).reshape(-1, 6))
+        self._wandb.log(objs, step=None if step is None else int(step))
+
+    def close(self):
+        if self._wandb is not None:
+            self._wandb.finish()
+        super().close()
+
+
+def build_logger(cfg, log_dir, quiet=False):
+    """`cfg.exp.wandb: True` adds the wandb mirror (JAX trainer.py:210)."""
+    if cfg is not None and cfg.exp.get('wandb', False):
+        return WandbLogger(
+            log_dir, quiet=quiet,
+            project=cfg.exp.get('wandb_project', 'multi_part_assembly_tpu'),
+            run_name=cfg.exp.get('name', None))
+    return JSONLLogger(log_dir, quiet=quiet)
 
 
 def _to_device(batch, device):
@@ -78,9 +157,10 @@ def device_sampling_enabled(cfg, device):
 
 class Trainer:
     """Trains `cfg` on `device` ('cuda', 'cuda:N' or 'cpu'); a CUDA device
-    that is absent raises, the CPU runs only when asked for."""
+    that is absent raises, the CPU runs only when asked for.  With `resume`
+    it picks up from the newest checkpoint under `ckp_dir/models`."""
 
-    def __init__(self, cfg, device, ckp_dir=None):
+    def __init__(self, cfg, device, ckp_dir=None, resume=True, quiet=False):
         # fp32 means fp32: no TF32 in matmuls or cuDNN convolutions
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -92,9 +172,28 @@ class Trainer:
                                'explicitly to train there')
         seed = cfg.exp.get('seed', 0)
         torch.manual_seed(seed)
+        # seeded anew on resume, as the JAX trainer restarts its data key
+        # from the seed (trainer.py:585-586)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.model = build_model(cfg).to(self.device)
+        self._build_loaders(cfg)
+        self.optimizer, self.lr_schedule = build_optimizer(
+            cfg, max(1, len(self.train_loader)), self.model)
+        self.ckp_dir = ckp_dir or cfg.exp.get('ckp_dir', 'checkpoint/')
+        os.makedirs(self.ckp_dir, exist_ok=True)
+        self.logger = build_logger(cfg, self.ckp_dir, quiet=quiet)
+        self.ckpt_mgr = CheckpointManager(os.path.join(self.ckp_dir,
+                                                       'models'))
+        self.step = 0
+        self.start_epoch = 0
+        self.step_seconds = []  # wall time of each train step, synchronised
+        self.metrics = {}  # the last validation's
+        self.test_results = None
+        if resume:
+            self._try_resume()
+
+    def _build_loaders(self, cfg):
         self.train_loader, self.val_loader = build_geometry_dataloader(cfg)
         # the slot wire: tables per split (None = the host wire)
         self.tables = {'train': None, 'val': None}
@@ -103,17 +202,53 @@ class Trainer:
                 name: enable_device_sampling(loader, cfg, self.device)
                 for name, loader in (('train', self.train_loader),
                                      ('val', self.val_loader))}
-        self.optimizer, self.lr_schedule = build_optimizer(
-            cfg, max(1, len(self.train_loader)), self.model)
-        self.ckp_dir = ckp_dir or cfg.exp.get('ckp_dir', 'checkpoint/')
-        self.logger = JSONLLogger(self.ckp_dir)
-        self.step = 0
-        self.step_seconds = []  # wall time of each train step, synchronised
-        self.metrics = {}  # the last validation's
 
-    def _augment(self, batch):
-        """A host batch -> the augmented batch on the device.  A slot-wire
-        batch is sampled and expanded on the device first."""
+    # ------------------------------------------------------------------
+    # checkpoints (JAX trainer.py:641-673)
+    # ------------------------------------------------------------------
+    def _load_state(self, state):
+        self.model.load_state_dict(state['model'])
+        self.optimizer.load_state_dict(state['optimizer'])
+        # torch keeps Adam's step counts on the CPU unless the optimizer is
+        # capturable or fused; map_location moved them with the rest
+        for group in self.optimizer.param_groups:
+            if group.get('capturable') or group.get('fused'):
+                continue
+            for p in group['params']:
+                st = self.optimizer.state.get(p, {})
+                if torch.is_tensor(st.get('step')):
+                    st['step'] = st['step'].cpu()
+        self.step = int(state['step'])
+
+    def _try_resume(self):
+        latest = self.ckpt_mgr.latest_step()
+        if latest is None:
+            return
+        state = self.ckpt_mgr.restore(latest, self.device)
+        self._load_state(state)
+        self.start_epoch = int(state['epoch']) + 1
+        print(f'resumed from epoch {state["epoch"]} (step {self.step})',
+              flush=True)
+
+    def save_checkpoint(self, epoch, metrics):
+        self.ckpt_mgr.save(epoch, {
+            'model': self.model.state_dict(),
+            'optimizer': self.optimizer.state_dict(),
+            'step': self.step, 'epoch': epoch}, metrics)
+
+    def load_weights(self, path):
+        """Load the model, optimizer and step of a checkpoint: its step
+        directory (`models/<epoch>`, what `find_last_ckp` returns) or the
+        state file in it."""
+        self._load_state(load_state(os.path.abspath(path), self.device))
+
+    # ------------------------------------------------------------------
+    # loops
+    # ------------------------------------------------------------------
+    def _augment(self, batch, generator=None):
+        """A host batch -> the augmented batch on the device, its rotations
+        drawn from `generator` (default: the trainer's).  A slot-wire batch
+        is sampled and expanded on the device first."""
         if 'part_slots__packed' in batch:
             batch = dict(batch)
             tables = batch.pop('__tables__')
@@ -128,7 +263,8 @@ class Trainer:
         else:
             batch = _to_device(batch, self.device)
         aug = augment_geometry_batch(
-            batch.pop('part_pcs_raw'), batch['part_valids'], self.generator,
+            batch.pop('part_pcs_raw'), batch['part_valids'],
+            self.generator if generator is None else generator,
             rot_range=float(self.cfg.data.get('rot_range', -1.0)))
         return {**batch, **aug}
 
@@ -183,12 +319,50 @@ class Trainer:
 
     def validate(self, epoch):
         metrics = self._eval_loop(self.val_loader, 'val')
-        self.logger.log(metrics, step=self.step, echo=True)
+        self.logger.log(metrics, step=self.step, echo=sorted(metrics))
+        n_vis = self.cfg.exp.get('val_sample_vis', 0)
+        if n_vis and n_vis > 0:
+            self._export_val_vis(epoch, n_vis)
         return metrics
 
+    @torch.no_grad()
+    def _export_val_vis(self, epoch, n_vis):
+        """PLY export of sampled assemblies on the first batch of the train
+        and of the val loader (JAX trainer.py:870-904).  The batch is
+        augmented from a generator seeded by `epoch`; the noise of the
+        samples comes from the trainer's generator."""
+        from .vis_utils import export_assembly_samples, sample_assembly
+        colors = self.cfg.data.get('colors', [[127, 127, 127]] * 21)
+        self.model.eval()
+        for split, loader in (('train', self.train_loader),
+                              ('val', self.val_loader)):
+            batches = iter(loader)
+            batch = next(batches, None)
+            batches.close()  # stops the loader's producer thread
+            if batch is None:
+                continue
+            aug = torch.Generator(device=self.device).manual_seed(epoch)
+            data = self._augment(batch, aug)
+            gt_pcs, preds = sample_assembly(
+                self.model, data, self.generator,
+                rot_type=self.cfg.model.rot_type,
+                sample_iter=self.cfg.loss.get('sample_iter', 1))
+            valids = data['part_valids']
+            n = min(n_vis, valids.shape[0])
+            export_assembly_samples(
+                gt_pcs, preds, valids, colors,
+                os.path.join(self.ckp_dir, 'vis'),
+                prefix=f'epoch{epoch}_{split}', max_shapes=n)
+            self.logger.log_assemblies(f'assembly/{split}', gt_pcs, preds,
+                                       valids, colors, step=self.step,
+                                       max_shapes=n)
+
     def fit(self):
+        """Train from `start_epoch`, validating and saving a checkpoint
+        every `val_every` epochs and after the last (JAX
+        trainer.py:906-922).  Returns the last validation's metrics."""
         cfg = self.cfg
-        for epoch in range(cfg.exp.num_epochs):
+        for epoch in range(self.start_epoch, cfg.exp.num_epochs):
             t0 = time.perf_counter()
             logs = self.train_epoch(epoch)
             if logs is not None:
@@ -197,7 +371,24 @@ class Trainer:
             if (epoch + 1) % cfg.exp.val_every == 0 or \
                     epoch == cfg.exp.num_epochs - 1:
                 self.metrics = self.validate(epoch)
+                self.save_checkpoint(epoch, self.metrics)
         return self.metrics
+
+    def swap_loaders(self, cfg):
+        """Point the data pipeline at another cfg, such as another category,
+        keeping the model and optimizer (JAX trainer.py:924-935)."""
+        assert cfg.data.max_num_part == self.cfg.data.max_num_part, \
+            'swap_loaders requires category-invariant batch shapes'
+        self.cfg = cfg
+        self._build_loaders(cfg)
+
+    def test(self):
+        """Evaluate on the val split as `test/*` (JAX trainer.py:937-944)."""
+        metrics = self._eval_loop(self.val_loader, 'test')
+        print('; '.join(f'{k}: {v:.6f}' for k, v in sorted(metrics.items())),
+              flush=True)
+        self.test_results = metrics
+        return metrics
 
     def close(self):
         self.logger.close()

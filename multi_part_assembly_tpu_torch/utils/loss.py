@@ -10,7 +10,7 @@ import torch
 from ..ops.chamfer import chamfer_diag, chamfer_distance, chamfer_parts
 from .transforms import rot_pc, transform_pc
 
-__all__ = ['_valid_mean', 'trans_l2_loss', 'rot_cosine_loss',
+__all__ = ['_valid_mean', 'trans_l2_loss', 'rot_l2_loss', 'rot_cosine_loss',
            'rot_points_l2_loss', 'rot_points_cd_loss', 'shape_cd_loss',
            'repulsion_cd_matrix', 'repulsion_cd_loss']
 
@@ -27,13 +27,31 @@ def trans_l2_loss(trans1, trans2, valids):
     return _valid_mean(((trans1 - trans2)**2).sum(-1), valids)
 
 
+def rot_l2_loss(rot1, rot2, valids):
+    """min(|q1 - q2|^2, |q1 + q2|^2), since q and -q are one rotation
+    (JAX loss.py:40-46)."""
+    assert rot1.rot_type == rot2.rot_type == 'quat'
+    q1, q2 = rot1.rot, rot2.rot
+    l2_1 = ((q1 - q2)**2).sum(-1)
+    l2_2 = ((q1 + q2)**2).sum(-1)
+    return _valid_mean(torch.minimum(l2_1, l2_2), valids)
+
+
 def rot_cosine_loss(rot1, rot2, valids):
-    """1 - |<q1, q2>| (JAX loss.py:49-66, quaternions)."""
+    """Cosine rotation loss (JAX loss.py:49-66): quat 1 - |<q1, q2>|; rmat
+    the mean of (I - R1^T R2)^2, R1^T R2 as a broadcast multiply and a sum
+    (exact f32, as JAX's HIGHEST-precision einsum)."""
     assert rot1.rot_type == rot2.rot_type
-    if rot1.rot_type != 'quat':
+    if rot1.rot_type == 'quat':
+        loss_per_part = 1.0 - torch.abs((rot1.rot * rot2.rot).sum(-1))
+    elif rot1.rot_type == 'rmat':
+        r1, r2 = rot1.rot, rot2.rot  # [B, P, 3, 3]
+        rtr = (r1[..., :, :, None] * r2[..., :, None, :]).sum(-3)
+        iden = torch.eye(3, dtype=rtr.dtype, device=rtr.device)
+        loss_per_part = ((iden - rtr)**2).mean((-1, -2))
+    else:
         raise NotImplementedError(
-            f'cosine loss for {rot1.rot_type} is not ported yet')
-    loss_per_part = 1.0 - torch.abs((rot1.rot * rot2.rot).sum(-1))
+            f'cosine loss not supported for {rot1.rot_type}')
     return _valid_mean(loss_per_part, valids)
 
 

@@ -3,7 +3,8 @@
 Counterpart of scripts/train.py for `multi_part_assembly_tpu_torch`:
     python scripts/train_torch.py --cfg_file configs/...py \
         [--device cuda|cuda:N|cpu] [--opts key value ...] [--overfit N] \
-        [--bf16 | --no-bf16]
+        [--bf16 | --no-bf16] [--ckp_dir DIR] [--weight CKPT] [--no_resume] \
+        [--vis N] [--profile DIR]
 
 Trains on `--device` (default `cuda`); a CUDA device that is absent is an
 error, and the CPU runs only when `--device cpu` asks for it.  With
@@ -11,8 +12,17 @@ error, and the CPU runs only when `--device cpu` asks for it.  With
 data on a CUDA device) the card samples the surface points itself from
 resident mesh tables, laid out by `data.device_table_layout dense|chunked`
 (default: the auto rule); `data.device_sampling False` samples them on the
-host and copies the clouds.  Checkpoints and auto-resume are not ported
-yet.
+host and copies the clouds.
+
+Every validation saves a checkpoint under `<ckp_dir>/models/<epoch>/`,
+keeping the 5 best by val/part_acc, and exports sampled assemblies as PLY
+under `<ckp_dir>/vis/` (`--vis N` shapes; 0 turns it off).  A run started
+on a `ckp_dir` that holds checkpoints resumes from the newest unless
+`--no_resume`; `--weight` loads a checkpoint (its step directory or the
+state file in it) when nothing was resumed.  The environment variable
+MPA_SEED overrides `exp.seed`.  `--profile DIR` writes a torch.profiler
+trace of one epoch (trained before the run proper, as scripts/train.py
+does) to DIR/trace.json.
 """
 
 import argparse
@@ -30,6 +40,9 @@ def parse_args(argv=None):
                              "or 'cpu' (default cuda; no CPU fallback)")
     parser.add_argument('--category', type=str, default='',
                         help='dataset category override')
+    parser.add_argument('--weight', type=str, default='',
+                        help='load weights (auto-resume wins if checkpoints '
+                             'exist)')
     parser.add_argument('--opts', nargs='*', default=[],
                         help='config overrides: key value [key value ...]')
     parser.add_argument('--ckp_dir', type=str, default='')
@@ -39,6 +52,12 @@ def parse_args(argv=None):
                         help='bf16 matmuls in the encoder, transformer and '
                              'regressor (default: cfg.exp.bf16, which '
                              'defaults to True; --no-bf16 forces f32)')
+    parser.add_argument('--no_resume', action='store_true')
+    parser.add_argument('--vis', type=int, default=-1,
+                        help='samples to visualize per val epoch')
+    parser.add_argument('--profile', type=str, default='',
+                        help='write a torch.profiler trace of the first '
+                             'epoch into this directory')
     return parser.parse_args(argv)
 
 
@@ -53,6 +72,10 @@ def build_cfg(args):
         cfg.data.overfit = args.overfit
     if args.bf16 is not None:
         cfg.exp.bf16 = args.bf16
+    if args.vis >= 0:
+        cfg.exp.val_sample_vis = args.vis
+    if os.environ.get('MPA_SEED'):
+        cfg.exp.seed = int(os.environ['MPA_SEED'])
     cfg_name = os.path.splitext(os.path.basename(args.cfg_file))[0]
     cfg.exp.ckp_dir = args.ckp_dir or os.path.join(
         cfg.exp.ckp_dir, cfg_name,
@@ -61,17 +84,35 @@ def build_cfg(args):
     return cfg
 
 
+def profile_epoch(trainer, out_dir):
+    """One epoch under torch.profiler, its trace in out_dir/trace.json."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if trainer.device.type == 'cuda':
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        trainer.train_epoch(trainer.start_epoch)
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, 'trace.json'))
+    print(f'profile trace written to {out_dir}', flush=True)
+
+
 def main(argv=None):
     """Train; returns the Trainer (its last validation in .metrics)."""
     from multi_part_assembly_tpu_torch.train.trainer import Trainer
     args = parse_args(argv)
     cfg = build_cfg(args)
     print(cfg)
-    trainer = Trainer(cfg, args.device, ckp_dir=cfg.exp.ckp_dir)
+    trainer = Trainer(cfg, args.device, ckp_dir=cfg.exp.ckp_dir,
+                      resume=not args.no_resume)
+    if args.weight and trainer.start_epoch == 0:
+        trainer.load_weights(args.weight)
     for split, tables in trainer.tables.items():
         if tables is not None:
             print(f'{split}: device sampling, {tables.layout} tables of '
                   f'{tables.nbytes} bytes', flush=True)
+    if args.profile:
+        profile_epoch(trainer, args.profile)
     trainer.fit()
     trainer.close()
     print('Done training!')

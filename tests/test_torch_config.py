@@ -66,34 +66,48 @@ def test_frozen_cfg_refuses_writes():
 _NO_JAX = f"""
 import sys
 sys.path.insert(0, {ROOT!r})
+sys.path.insert(0, {os.path.join(ROOT, 'scripts')!r})
 import torch
 from multi_part_assembly_tpu_torch.models import build_model
 from multi_part_assembly_tpu_torch.utils import load_cfg_file
 import multi_part_assembly_tpu_torch.datasets
 import multi_part_assembly_tpu_torch.train.trainer
-cfg = load_cfg_file({FLAGSHIP!r})
-cfg.merge_from_list(['model.pc_feat_dim', '16',
-                     'model.transformer_feat_dim', '32'])
-model = build_model(cfg).eval()
-B, P, N = 2, cfg.data.max_num_part, 16
-valids = (torch.arange(P)[None] < torch.tensor([[3], [5]])).float()
-with torch.no_grad():
-    out = model({{'part_pcs': torch.randn(B, P, N, 3),
-                 'part_valids': valids,
-                 'part_label': torch.zeros(B, P, 0),
-                 'instance_label': torch.zeros(B, P, 0)}})
-assert out['rot'].shape == (B, P, 4) and out['trans'].shape == (B, P, 3)
-assert torch.isfinite(out['rot']).all()
+import multi_part_assembly_tpu_torch.train.checkpoint
+import multi_part_assembly_tpu_torch.train.vis_utils
+import multi_part_assembly_tpu_torch.utils.misc
+import multi_part_assembly_tpu_torch.utils.eval_utils
+import train_torch, test_torch, e2e_check_torch
+from multi_part_assembly_tpu_torch.utils.rotation import Rotation3D
+B, N = 2, 16
+for rot_type, rot_dim in (('quat', 4), ('rmat', 6)):
+    cfg = load_cfg_file({FLAGSHIP!r})
+    cfg.merge_from_list(['model.pc_feat_dim', '16',
+                         'model.transformer_feat_dim', '32',
+                         'model.rot_type', rot_type])
+    model = build_model(cfg).eval()
+    P = cfg.data.max_num_part
+    valids = (torch.arange(P)[None] < torch.tensor([[3], [5]])).float()
+    with torch.no_grad():
+        out = model({{'part_pcs': torch.randn(B, P, N, 3),
+                     'part_valids': valids,
+                     'part_label': torch.zeros(B, P, 0),
+                     'instance_label': torch.zeros(B, P, 0)}})
+    assert out['rot'].shape == (B, P, rot_dim), out['rot'].shape
+    assert out['trans'].shape == (B, P, 3)
+    assert torch.isfinite(Rotation3D(out['rot'], rot_type).to_euler()).all()
 loaded = sorted(m for m in sys.modules if m.split('.')[0] in
-                ('jax', 'jaxlib', 'flax', 'multi_part_assembly_tpu'))
+                ('jax', 'jaxlib', 'flax', 'optax', 'orbax',
+                 'multi_part_assembly_tpu'))
 assert not loaded, loaded
 print('ok')
 """
 
 
 def test_port_never_imports_jax():
-    """A fresh interpreter imports the port, loads the flagship config,
-    builds the model and runs one CPU forward without loading JAX."""
+    """A fresh interpreter imports the port and its scripts, loads the
+    flagship config, builds the model with each pose head (quat and 6D)
+    and runs one CPU forward without loading JAX, flax, optax, orbax or
+    the JAX package."""
     proc = subprocess.run([sys.executable, '-c', _NO_JAX],
                           capture_output=True, text=True, timeout=240,
                           cwd=ROOT)
