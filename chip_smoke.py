@@ -50,7 +50,10 @@ Phases, each printing its own line(s); any failure exits non-zero:
      against its dense route, the kernel against the plain version on the
      card, and the card against the CPU at a small size.  The launch
      counters are reset just before the repulsion runs and read just
-     after: they give B7's launches;
+     after: they give B7's launches.  The same MoN check for each other
+     geometric family (Global, LSTM, DGL, RGL-Net, PN-Transformer-Refine,
+     Identity) on its everyday config at published width, LSTM's and
+     RGL-Net's draws made on the host and given to both sides;
   5. main path: scripts/train_torch.py's main on the flagship config at
      full width on a synthetic everyday set, five runs of three epochs
      (12 steps of batch 32) and a validation each: the host wire
@@ -70,7 +73,17 @@ Phases, each printing its own line(s); any failure exits non-zero:
      moment bitwise; the checkpoint loads into a CPU trainer, whose save
      loads back onto the card, bitwise; one more epoch in both trainers
      from the same generator states gives bitwise the same losses and
-     weights.  Save, resume and val-export times printed.
+     weights.  Save, resume and val-export times printed;
+  7. families: scripts/train_torch.py's main on each other family's
+     everyday config at published width, one epoch (4 steps of batch 32)
+     on the dense slot wire, a validation and a checkpoint each; the
+     counters reset before each run, B1-B4 must launch exactly T times a
+     train step (T = 3 for DGL, RGL-Net and Refine, which supervise every
+     iteration; identity launches B1 and B3 and never B2/B4), the dense
+     sampler once a batch, and B7, B8 and the chunked sampler never; step
+     time, data wait, peak memory, and one torch.profiler run of two more
+     steps (device kernels a step, device idle share); then DGL trains 2
+     epochs, resumes and trains one more, bitwise as phase 6.
 The smoke prints its total wall time; the line before the last is a JSON
 summary of the kernels; the last line is {"ok": true, "device": {...}}.
 """
@@ -914,6 +927,13 @@ def _slice_rot_type(rot_type, batch):
     if not (math.isfinite(l_gpu) and rel_loss <= 1e-4 and rel_grad <= 1e-3):
         raise AssertionError(f'the card disagrees with the CPU on one step '
                              f'({rot_type})')
+    _check_eval_logs(rot_type, model, cfg, batch)
+
+
+def _check_eval_logs(tag, model, cfg, batch):
+    """The eval logs of the batch with the full metric set, card against
+    CPU: the Euler metrics within 1e-3 degrees, the rest within 1e-5."""
+    from multi_part_assembly_tpu_torch.train.core import mon_loss
     logs = {}
     model.eval()
     with torch.no_grad():
@@ -934,12 +954,12 @@ def _slice_rot_type(rot_type, batch):
                                cpu.abs().clamp(min=1.0)).max()), 1e-5)
     missing = [k for k in EVAL_KEYS if k not in logs['cuda']]
     finite = all(bool(torch.isfinite(v).all()) for v in logs['cuda'].values())
-    print(f'slice[{rot_type}]: eval logs of one batch, card vs CPU, largest '
+    print(f'slice[{tag}]: eval logs of one batch, card vs CPU, largest '
           f'difference (tolerance): ' + ', '.join(
               f'{k} {d:.2e} ({t:g})' for k, (d, t) in sorted(worst.items())),
           flush=True)
     if missing or not finite or any(d > t for d, t in worst.values()):
-        raise AssertionError(f'eval logs ({rot_type}): missing {missing}, '
+        raise AssertionError(f'eval logs ({tag}): missing {missing}, '
                              f'finite {finite}, or the card disagrees with '
                              'the CPU')
 
@@ -1395,6 +1415,300 @@ def phase_resume(data_dir, tmp):
     return launches
 
 
+# the other geometric families: (everyday config, supervised iterations
+# a train step T, which B1-B4 launch T times)
+FAMILIES = {
+    'global': ('configs/global/global-32x1-cosine_200e-everyday.py', 1),
+    'lstm': ('configs/lstm/lstm-32x1-cosine_200e-everyday.py', 1),
+    'dgl': ('configs/dgl/dgl-32x1-cosine_200e-everyday.py', 3),
+    'rgl_net': ('configs/rgl_net/rgl_net-32x1-cosine_200e-everyday.py', 3),
+    'pn_transformer_refine': (
+        'configs/pn_transformer/pn_transformer_refine/'
+        'pn_transformer_refine-32x1-cosine_400e-everyday.py', 3),
+    'identity': ('configs/identity/identity-32x1-cosine_200e-everyday.py',
+                 1),
+}
+
+
+def _grads(model):
+    """Every parameter's gradient, flat on the CPU (None as zeros)."""
+    return torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad)
+                      .reshape(-1).cpu() for p in model.parameters()])
+
+
+def _step(model, batch, cfg, device):
+    """One train-mode MoN loss and its gradients on `device`."""
+    from multi_part_assembly_tpu_torch.train.core import mon_loss
+    m = model.to(device)
+    m.zero_grad(set_to_none=True)
+    loss, _ = mon_loss(m, {k: v.to(device) for k, v in batch.items()},
+                       cfg=cfg, training=True)
+    if loss.requires_grad:
+        loss.backward()
+    return float(loss.detach()), _grads(m)
+
+
+def _slice_family(family, batch):
+    """One MoN loss and its gradients in train mode on the card (kernels)
+    against the CPU (plain chamfer), the same f32 weights and batch-norm
+    statistics, dropout off, and the same draws (LSTM's hidden noise and
+    teacher-forcing flag, RGL-Net's initial hidden states, made on the
+    host); then the eval logs of the batch.  Identity: loss and logs.
+
+    DGL's and RGL-Net's batch norms run over every row with the batch's
+    statistics, which makes their gradient ill-conditioned: it moves when
+    the inputs move by an ulp (tests/test_torch_dgl.py).  So the gradient
+    limit, 1e-3 relative L2 as the flagship's, adds twice the card
+    gradient's own movement under relative 1e-7 and 1e-6 nudges of the
+    clouds, printed beside it (for Global and LSTM that term is small)."""
+    from multi_part_assembly_tpu_torch.models import build_model
+    from multi_part_assembly_tpu_torch.utils import load_cfg_file
+    cfg = load_cfg_file(os.path.join(ROOT, FAMILIES[family][0]))
+    cfg.exp.bf16 = False
+    torch.manual_seed(0)
+    model = build_model(cfg, 'cpu').train()
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    b = batch['part_valids'].shape[0]
+    g = torch.Generator().manual_seed(5)
+    if family == 'lstm':
+        model.hidden_noise_override = torch.randn((2, b, 16), generator=g)
+        model.teacher_force_override = True
+    if family == 'rgl_net':
+        model.hidden_noise_override = torch.randn(
+            (cfg.model.gnn_iter, 1, 2, b, 2 * cfg.model.pc_feat_dim),
+            generator=g)
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = (_step(model, batch, cfg, d)
+                                      for d in ('cpu', 'cuda'))
+    rel_loss = abs(l_gpu - l_cpu) / abs(l_cpu)
+    if family == 'identity':
+        ok = not g_gpu.any() and not g_cpu.any()
+        print(f'slice[{family}]: mon_loss card {l_gpu:.7f} vs CPU '
+              f'{l_cpu:.7f} (rel {rel_loss:.2e}, tolerance 1e-4); no '
+              f'gradient on either side {ok}', flush=True)
+    else:
+        jitter = 0.0
+        for eps in (1e-7, 1e-6):
+            nudged = dict(batch)
+            d = torch.randn(batch['part_pcs'].shape,
+                            generator=torch.Generator().manual_seed(9))
+            nudged['part_pcs'] = batch['part_pcs'] * (1 + eps * d.cuda())
+            g_n = _step(model, nudged, cfg, 'cuda')[1]
+            jitter = max(jitter, float((g_n - g_gpu).norm() / g_gpu.norm()))
+        rel_grad = float((g_gpu - g_cpu).norm() / g_cpu.norm())
+        tol = 1e-3 + 2 * jitter
+        ok = rel_grad <= tol
+        print(f'slice[{family}]: mon_loss card {l_gpu:.7f} vs CPU '
+              f'{l_cpu:.7f} (rel {rel_loss:.2e}, tolerance 1e-4); gradient '
+              f'rel. L2 diff {rel_grad:.2e} (tolerance 1e-3 + 2 x '
+              f'{jitter:.2e}, the card gradient\'s movement under nudges '
+              f'of 1e-7 and 1e-6)', flush=True)
+    if not (math.isfinite(l_gpu) and rel_loss <= 1e-4 and ok):
+        raise AssertionError(f'the card disagrees with the CPU on one step '
+                             f'({family})')
+    _check_eval_logs(family, model, cfg, batch)
+
+
+def phase_family_slices():
+    """The flagship's slice check for each other family, on its everyday
+    config at its published width."""
+    batch = _slice_batch()
+    v = batch['part_valids']
+    batch['part_ids'] = torch.where(
+        v > 0, torch.arange(P, device='cuda').float(), 0.0)
+    batch['valid_matrix'] = v[:, :, None] * v[:, None, :]
+    for family in FAMILIES:
+        _slice_family(family, batch)
+
+
+def _profile_steps(trainer, steps=2, tries=2):
+    """(device kernels a step, device busy ms a step, wall ms a step) over
+    `steps` train steps after a warm one, from torch.profiler: one run,
+    enough to see how far the host keeps the card idle.  A run in which
+    the profiler records no device event is tried again; after `tries`
+    such runs, None (not measured)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for attempt in range(tries):
+        trainer.train_loader.set_epoch(1 + attempt)
+        batches = iter(trainer.train_loader)
+        trainer.train_step(next(batches))
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                trainer.train_step(next(batches))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        batches.close()
+        kernels = [ev for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            busy_us = sum(ev.time_range.elapsed_us() for ev in kernels)
+            return len(kernels) / steps, busy_us / 1e3 / steps, \
+                1e3 * wall / steps
+    return None
+
+
+def _profile_line(profile):
+    if profile is None:
+        return 'the profiler recorded no device event: not measured'
+    kernels, busy, step_ms = profile
+    return (f'{kernels:.0f} device kernels a step, {busy:.2f} ms of device '
+            f'time in {step_ms:.2f} ms a step (device idle '
+            f'{100 * (1 - busy / step_ms):.1f}%)')
+
+
+def _family_run(family, data_dir, tmp):
+    """scripts/train_torch.py's main on the family's everyday config at its
+    published width, on the dense slot wire: one epoch (4 steps of batch
+    32) and a validation with its checkpoint.  The launch counters are
+    reset just before it: B1-B4 must launch T times a train step
+    (identity: B1 and B3 once, B2 and B4 never, since nothing needs a
+    gradient), the dense sampler once a batch, and B7, B8 and the chunked
+    sampler never.  Then one torch.profiler run of two more steps."""
+    import train_torch
+    from multi_part_assembly_tpu_torch.train.trainer import Trainer
+    path, T = FAMILIES[family]
+    launches = {}
+    validate = Trainer.validate
+
+    def counted_validate(self, epoch):
+        launches['train'] = _launches()
+        metrics = validate(self, epoch)
+        launches['val'] = {k: v - launches['train'][k]
+                           for k, v in _launches().items()}
+        return metrics
+
+    run_dir = os.path.join(tmp, f'family_{family}')
+    Trainer.validate = counted_validate
+    try:
+        with _Timed('save_checkpoint', '_export_val_vis') as timed:
+            torch.cuda.reset_peak_memory_stats()
+            C.reset_launches()
+            DS.reset_launches()
+            t0 = time.perf_counter()
+            trainer = train_torch.main([
+                '--cfg_file', os.path.join(ROOT, path), '--ckp_dir', run_dir,
+                '--opts', 'data.data_dir', data_dir, 'exp.num_epochs', '1',
+                'exp.val_every', '1', *DENSE])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            totals = _launches()
+    finally:
+        Trainer.validate = validate
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    tag = f'family[{family}]'
+    with open(os.path.join(run_dir, 'metrics.jsonl')) as f:
+        train = [r for r in map(json.loads, f) if 'train/loss' in r]
+    losses = [r['train/loss'] for r in train]
+    steps = trainer.step_seconds
+    if len(steps) != 4 or not all(map(math.isfinite, losses)):
+        raise AssertionError(f'{tag}: expected 4 finite train steps, got '
+                             f'{losses}')
+    ms = 1000.0 * sum(steps[1:]) / len(steps[1:])
+    waits = [1000.0 * r['train/data_time'] for r in train]
+    wait_ms = sum(waits[1:]) / len(waits[1:])
+    print(f'{tag}: {trainer.tables["train"].layout} tables; {len(steps)} '
+          f'train steps of batch {B}, first {1000 * steps[0]:.1f} ms, then '
+          f'{ms:.2f} ms/step = {B / (ms / 1000):.1f} samples/s; data wait '
+          f'{wait_ms:.3f} ms/step; peak memory {peak_gib:.2f} GiB; wall '
+          f'{wall:.1f} s; train losses {["%.5f" % v for v in losses]}',
+          flush=True)
+    _check_metrics(tag, trainer.metrics)
+    saved = trainer.ckpt_mgr.all_steps()
+    print(f'{tag}: checkpoint save {timed.ms("save_checkpoint")} ms, val '
+          f'export {timed.ms("_export_val_vis")} ms; checkpoints kept '
+          f'{saved}', flush=True)
+    if saved != [0] or trainer.tables['train'].layout != 'dense':
+        raise AssertionError(f'{tag}: expected one checkpoint on the dense '
+                             f'wire, got {saved}')
+    n = len(steps)
+    grad = 0 if family == 'identity' else T * n
+    expected = {'nn_parts': T * n, 'nn_diag': T * n, 'bwd_parts': grad,
+                'bwd_diag': grad, 'sample_dense': n, 'sample_chunked': 0,
+                'nn_off': 0, 'nn_dir': 0}
+    print(f'{tag}: kernel launches in training {launches["train"]} '
+          f'(expected {expected}: T = {T} a step), in validation '
+          f'{launches["val"]}', flush=True)
+    if launches['train'] != expected:
+        raise AssertionError(f'{tag}: training launches differ from the '
+                             'expected counts')
+    val = launches['val']
+    if val['nn_diag'] <= 0 or val['sample_dense'] <= 0 or any(
+            val[k] for k in ('bwd_parts', 'bwd_diag', 'nn_off', 'nn_dir',
+                             'sample_chunked')):
+        raise AssertionError(f'{tag}: validation launches {val}')
+    profile = _profile_steps(trainer)
+    print(f'{tag}: torch.profiler over 2 steps: {_profile_line(profile)}',
+          flush=True)
+    trainer.close()
+    return totals, (ms, wait_ms, peak_gib, profile)
+
+
+def _family_resume(family, data_dir, tmp):
+    """2 epochs with a validation and a checkpoint each; a new Trainer on
+    the same ckp_dir resumes at epoch 2 with every parameter, buffer and
+    Adam moment bitwise; one more epoch in both from the same generator
+    states gives bitwise the same losses and weights."""
+    import train_torch
+    from multi_part_assembly_tpu_torch.train.trainer import Trainer
+    ckp = os.path.join(tmp, f'resume_{family}')
+    cfg = train_torch.build_cfg(train_torch.parse_args([
+        '--cfg_file', os.path.join(ROOT, FAMILIES[family][0]), '--ckp_dir',
+        ckp, '--opts', 'data.data_dir', data_dir, 'exp.num_epochs', '2',
+        'exp.val_every', '1', *DENSE]))
+    tag = f'family[{family}] resume'
+    first = Trainer(cfg, 'cuda', ckp_dir=ckp, quiet=True)
+    first.fit()
+    second = Trainer(cfg, 'cuda', ckp_dir=ckp, quiet=True)
+    differ = _differing(_state(second), _state(first))
+    print(f'{tag}: checkpoints {first.ckpt_mgr.all_steps()}; new Trainer '
+          f'start_epoch {second.start_epoch}, step {second.step}; tensors '
+          f'not bitwise equal: {differ} of {len(_state(first))}',
+          flush=True)
+    if first.ckpt_mgr.all_steps() != [0, 1] or second.start_epoch != 2 or \
+            second.step != first.step or differ:
+        raise AssertionError(f'{tag}: the resumed state differs')
+    states = (first.generator.get_state(), torch.get_rng_state(),
+              torch.cuda.get_rng_state())
+    losses = _epoch_losses(first, 2)
+    second.generator.set_state(states[0])
+    torch.set_rng_state(states[1])
+    torch.cuda.set_rng_state(states[2])
+    again = _epoch_losses(second, 2)
+    after = _differing(_state(second), _state(first))
+    print(f'{tag}: epoch 2 in both from the same generator states: losses '
+          f'{["%.7f" % v for v in losses]}, bitwise equal {again == losses}'
+          f'; tensors not bitwise equal after it: {after}', flush=True)
+    if again != losses or after or not all(map(math.isfinite, losses)):
+        raise AssertionError(f'{tag}: the resumed epoch differs from the '
+                             'uninterrupted one')
+    first.close()
+    second.close()
+
+
+def phase_families(data_dir, tmp):
+    """Each other family's main path (see _family_run), then DGL's resume.
+    Returns the launch counts of all these runs."""
+    totals, rows = {}, {}
+    for family in FAMILIES:
+        launches, rows[family] = _family_run(family, data_dir, tmp)
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+    print('families: ' + '; '.join(
+        f'{f} {ms:.2f} ms/step, wait {w:.3f} ms, {mem:.2f} GiB, '
+        f'{_profile_line(prof)}'
+        for f, (ms, w, mem, prof) in rows.items()), flush=True)
+    C.reset_launches()
+    DS.reset_launches()
+    _family_resume('dgl', data_dir, tmp)
+    for k, v in _launches().items():
+        totals[k] += v
+    return totals
+
+
 def main():
     t_start = time.perf_counter()
     phase_device()
@@ -1411,9 +1725,12 @@ def main():
         results = phase_kernels()
         results.update(phase_sampler(data_dir, tmp))
         phase_slice()
+        phase_family_slices()
         repulsion_launches = phase_repulsion()
         launches = phase_main(data_dir, tmp)
         for k, v in phase_resume(data_dir, tmp).items():
+            launches[k] += v
+        for k, v in phase_families(data_dir, tmp).items():
             launches[k] += v
     # B7 runs on no training path: its count is the repulsion runs'
     launches['nn_dir'] = repulsion_launches['nn_dir']

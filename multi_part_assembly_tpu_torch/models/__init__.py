@@ -1,28 +1,65 @@
 """Model factory (port of multi_part_assembly_tpu/models/__init__.py:28-77,
-PN-Transformer only)."""
+the seven geometric families with the PointNet encoder)."""
 
 import torch
 
-from .pn_transformer import PNTransformer
+from .dgl import DGLModel
+from .global_ import GlobalModel
+from .identity import IdentityModel
+from .lstm import LSTMModel
+from .pn_transformer import PNTransformer, PNTransformerRefine
+from .rgl_net import RGLNet
 
-__all__ = ['build_model', 'PNTransformer']
+__all__ = ['build_model', 'IdentityModel', 'GlobalModel', 'LSTMModel',
+           'DGLModel', 'RGLNet', 'PNTransformer', 'PNTransformerRefine']
 
 
-def build_model(cfg):
-    """Instantiate the configured model.  Matmuls run in bf16 unless
-    `cfg.exp.bf16` is False (the JAX package's precision switch,
-    utils/precision.py:34-37)."""
+def build_model(cfg, device='cuda'):
+    """Instantiate the configured model on `device` ('cuda', 'cuda:N' or
+    'cpu'): a CUDA device that is absent raises, the CPU is used only when
+    asked for.  The weights are drawn on the CPU, so they do not depend on
+    the device.  Matmuls run in bf16 unless `cfg.exp.bf16` is False (the
+    JAX package's precision switch, utils/precision.py:34-37)."""
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(f'device {str(device)!r} asked for, but no CUDA '
+                           'device is available; pass the CPU explicitly')
+    return _build(cfg).to(device)
+
+
+def _build(cfg):
     name = cfg.model.name
-    if name != 'pn_transformer':
-        raise NotImplementedError(f'model {name} is not ported yet')
     if cfg.data.dataset != 'geometry':
         raise NotImplementedError('semantic assembly is not ported yet')
-    bf16 = bool(cfg.exp.get('bf16', True))
-    return PNTransformer(
+    if name == 'identity':
+        return IdentityModel(rot_type=cfg.model.rot_type)
+    if cfg.model.encoder != 'pointnet':
+        raise NotImplementedError(
+            f'encoder {cfg.model.encoder} is not ported yet')
+    common = dict(
         rot_type=cfg.model.rot_type, pc_feat_dim=cfg.model.pc_feat_dim,
         encoder_arch=cfg.model.encoder, noise_dim=cfg.loss.noise_dim,
+        compute_dtype=torch.bfloat16 if bool(cfg.exp.get('bf16', True))
+        else torch.float32)
+    if name == 'global':
+        return GlobalModel(**common)
+    if name == 'lstm':
+        return LSTMModel(lstm_hidden_size=cfg.model.lstm_hidden_size,
+                         **common)
+    if name in ('dgl', 'rgl_net'):
+        cls = DGLModel if name == 'dgl' else RGLNet
+        return cls(gnn_iter=cfg.model.gnn_iter,
+                   merge_node=cfg.model.merge_node, semantic=False, **common)
+    transformer = dict(
         transformer_feat_dim=cfg.model.transformer_feat_dim,
         transformer_heads=cfg.model.transformer_heads,
         transformer_layers=cfg.model.transformer_layers,
-        transformer_pre_ln=cfg.model.transformer_pre_ln,
-        compute_dtype=torch.bfloat16 if bf16 else torch.float32)
+        transformer_pre_ln=cfg.model.transformer_pre_ln)
+    if name == 'pn_transformer':
+        return PNTransformer(**transformer, **common)
+    if name == 'pn_transformer_refine':
+        return PNTransformerRefine(
+            transformer_pos_enc=tuple(cfg.model.transformer_pos_enc),
+            pose_pc_feat=cfg.model.pose_pc_feat,
+            refine_steps=cfg.model.refine_steps, **transformer, **common)
+    raise NotImplementedError(f'model {name} is not supported')

@@ -6,7 +6,29 @@ stochastic path; `forward` is both.  Train or eval mode is the module's own
 (`model.train()` / `model.eval()`).
 """
 
-__all__ = ['extract_part_feats']
+import torch
+
+__all__ = ['extract_part_feats', 'rot_dim_of', 'zero_pose']
+
+
+def rot_dim_of(rot_type):
+    """Raw rotation-vector dim: quat=4, rmat=6 (the 6D head) (JAX
+    base.py:24-30)."""
+    if rot_type == 'quat':
+        return 4
+    if rot_type == 'rmat':
+        return 6
+    raise NotImplementedError(f'rotation {rot_type} is not supported')
+
+
+def zero_pose(rot_type, dtype=torch.float32, device=None):
+    """Identity pose vector [rot..., trans=0]: quat (1, 0, 0, 0), 6D
+    (1, 0, 0, 0, 1, 0) (JAX base.py:33-43)."""
+    rot = {'quat': [1.0, 0, 0, 0], 'rmat': [1.0, 0, 0, 0, 1.0, 0]}.get(
+        rot_type)
+    if rot is None:
+        raise NotImplementedError(f'rotation {rot_type} is not supported')
+    return torch.tensor(rot + [0.0] * 3, dtype=dtype, device=device)
 
 
 def extract_part_feats(encoder, part_pcs, part_valids):

@@ -100,17 +100,20 @@ class _EncoderStack(nn.Module):
 
 
 class TransformerEncoder(nn.Module):
-    """Stacked encoder layers with a final LN in pre-LN mode
-    (JAX transformer.py:72-98)."""
+    """Stacked encoder layers with a final LN in pre-LN mode and, with
+    `out_dim`, a final f32 projection `out_fc` (JAX transformer.py:72-98)."""
 
     def __init__(self, d_model, num_heads, ffn_dim, num_layers,
-                 norm_first=True, dropout=0.1, compute_dtype=torch.float32):
+                 norm_first=True, dropout=0.1, compute_dtype=torch.float32,
+                 out_dim=None):
         super().__init__()
         layers = [_EncoderLayer(d_model, num_heads, ffn_dim, norm_first,
                                 dropout, compute_dtype)
                   for _ in range(num_layers)]
         norm = nn.LayerNorm(d_model, eps=1e-5) if norm_first else None
         self.transformer_encoder = _EncoderStack(layers, norm)
+        self.out_fc = None if out_dim is None else \
+            nn.Linear(d_model, out_dim)
 
     def forward(self, tokens, valid_masks=None):
         """tokens: [B, T, C]; valid_masks: [B, T], True/1 = valid."""
@@ -120,4 +123,6 @@ class TransformerEncoder(nn.Module):
             x = layer(x, key_valid)
         if self.transformer_encoder.norm is not None:
             x = self.transformer_encoder.norm(x)
+        if self.out_fc is not None:
+            x = self.out_fc(x)
         return x

@@ -176,7 +176,7 @@ class Trainer:
         # from the seed (trainer.py:585-586)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
-        self.model = build_model(cfg).to(self.device)
+        self.model = build_model(cfg, self.device)
         self._build_loaders(cfg)
         self.optimizer, self.lr_schedule = build_optimizer(
             cfg, max(1, len(self.train_loader)), self.model)
@@ -278,7 +278,14 @@ class Trainer:
         loss, logs = mon_loss(self.model, data, cfg=self.cfg, training=True,
                               generator=self.generator)
         self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        if loss.requires_grad:  # identity's loss needs no gradient
+            loss.backward()
+        # JAX differentiates every parameter: one the loss does not reach
+        # (identity's dummy, LSTM's stop-sign head) takes a zero gradient,
+        # and Adam counts the step for it as optax does
+        for p in self.model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         clip_gradients(self.cfg, self.model)
         self.optimizer.step()
         self.step += 1

@@ -49,9 +49,10 @@ def parse_args(argv=None):
     parser.add_argument('--overfit', type=int, default=-1)
     parser.add_argument('--bf16', action=argparse.BooleanOptionalAction,
                         default=None,
-                        help='bf16 matmuls in the encoder, transformer and '
-                             'regressor (default: cfg.exp.bf16, which '
-                             'defaults to True; --no-bf16 forces f32)')
+                        help="bf16 matmuls in the model's encoder, "
+                             'transformer, pair MLPs and pose heads '
+                             '(default: cfg.exp.bf16, which defaults to '
+                             'True; --no-bf16 forces f32)')
     parser.add_argument('--no_resume', action='store_true')
     parser.add_argument('--vis', type=int, default=-1,
                         help='samples to visualize per val epoch')

@@ -84,7 +84,7 @@ for rot_type, rot_dim in (('quat', 4), ('rmat', 6)):
     cfg.merge_from_list(['model.pc_feat_dim', '16',
                          'model.transformer_feat_dim', '32',
                          'model.rot_type', rot_type])
-    model = build_model(cfg).eval()
+    model = build_model(cfg, 'cpu').eval()
     P = cfg.data.max_num_part
     valids = (torch.arange(P)[None] < torch.tensor([[3], [5]])).float()
     with torch.no_grad():

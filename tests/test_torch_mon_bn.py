@@ -216,7 +216,7 @@ def test_one_sample_is_bitwise_one_precompute_and_sample():
     cfg.exp.bf16 = False
     assert cfg.loss.sample_iter == 1
     torch.manual_seed(0)
-    net = build_model(cfg)
+    net = build_model(cfg, 'cpu')
     for m in net.modules():
         if isinstance(m, nn.Dropout):
             m.p = 0.0

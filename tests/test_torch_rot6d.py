@@ -73,7 +73,7 @@ def sides(no_dropout_f32):  # noqa: F811
     ref = _jax_side(raw, valids)
     cfg = TCFG.load_cfg_file(FLAGSHIP).merge_from_list(OPTS_6D)
     cfg.exp.bf16 = False
-    net = build_model(cfg)
+    net = build_model(cfg, 'cpu')
     sd = jax_to_state_dict(ref['var'])
     assert sd['head.rot_head.weight'].shape == (6, 128)
     net.load_state_dict(sd, strict=True)

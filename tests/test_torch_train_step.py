@@ -124,7 +124,7 @@ def _torch_step(raw, valids, ref):
     its rotations injected."""
     cfg = TCFG.load_cfg_file(FLAGSHIP).merge_from_list(OPTS)
     cfg.exp.bf16 = False
-    net = build_model(cfg)
+    net = build_model(cfg, 'cpu')
     net.load_state_dict(jax_to_state_dict(ref['var']), strict=True)
     for m in net.modules():
         if isinstance(m, torch.nn.Dropout):
