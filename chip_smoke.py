@@ -40,7 +40,13 @@ Phases, each printing its own line(s); any failure exits non-zero:
      Kernel and plain times from CUDA events, each beside its bound (the
      larger of its operations over the card's peak and its bytes over the
      memory rate; the samplers' bytes counted on the run's draws); a
-     kernel timed under its bound fails the run;
+     kernel timed under its bound fails the run.  Then L1 (phase_lap,
+     csrc/matching.cu, the linear assignment of semantic matching) against
+     its plain version on the card, identical assignments required, and
+     against scipy's optimum (objective within 1e-6 relative), on a
+     semantic batch's block-masked costs (M = S x B = 160 and M = B = 32,
+     n = 20), random and tie-heavy costs at n = 20, 2, 3 and 32; kernel and
+     plain times by CUDA events at the main path's shapes;
   4. slice: one PN-Transformer MoN loss and its gradients on the card
      against the same step on the CPU (plain chamfer), same weights, with
      the quaternion and with the 6D pose head, and the eval logs of the
@@ -53,13 +59,19 @@ Phases, each printing its own line(s); any failure exits non-zero:
      after: they give B7's launches.  The same MoN check for each other
      geometric family (Global, LSTM, DGL, RGL-Net, PN-Transformer-Refine,
      Identity) on its everyday config at published width, LSTM's and
-     RGL-Net's draws made on the host and given to both sides;
+     RGL-Net's draws made on the host and given to both sides.  The
+     semantic slice: one MoN step (S = 5) of the partnet_chair
+     PN-Transformer at full width on two shapes of a synthetic PartNet
+     set, card against CPU with the head noise and the match subsamples
+     given to both (loss 1e-4, gradients 1e-3 relative L2), and its eval
+     logs (losses, part_acc, connectivity_acc) within 1e-5;
   5. main path: scripts/train_torch.py's main on the flagship config at
-     full width on a synthetic everyday set, five runs of three epochs
-     (12 steps of batch 32) and a validation each: the host wire
+     full width on a synthetic everyday set, runs of three epochs (12
+     steps of batch 32) and a validation each: the host wire
      (data.device_sampling False), the device-sampling wire with the auto
-     table layout, with the dense layout, the host wire again, and the
-     dense layout through the unfused chamfer route (fused mode 'off');
+     table layout, with the dense layout, the host wire again (one epoch,
+     to make room for phase 8), and the dense layout through the unfused
+     chamfer route (fused mode 'off');
      then a sixth run of one epoch with the 6D pose head.  Each run resets
      the launch counters and requires its route's kernels to have launched
      in training and in validation, and the other route's never; each
@@ -83,7 +95,21 @@ Phases, each printing its own line(s); any failure exits non-zero:
      sampler once a batch, and B7, B8 and the chunked sampler never; step
      time, data wait, peak memory, and one torch.profiler run of two more
      steps (device kernels a step, device idle share); then DGL trains 2
-     epochs, resumes and trains one more, bitwise as phase 6.
+     epochs, resumes and trains one more, bitwise as phase 6.  No
+     geometric run launches L1;
+  8. semantic: scripts/train_torch.py's main on the partnet_chair
+     PN-Transformer config at full width (S = 5 MoN samples, 32-d noise)
+     on a synthetic PartNet set (128 shapes of 2 to 20 parts of 1000
+     points; 96 train, 32 val), three epochs (9 steps) and a validation
+     with part_acc and connectivity_acc and a checkpoint, on the slot wire
+     (the resident f16 table) and on the host wire; B1-B4 and L1 must
+     launch exactly S x T times a train step and S x (1, 2, 1) times a val
+     batch for B1, B3 and L1; step time, data wait, peak memory.  The
+     slot-wire run then resumes (bitwise, as phase 6), and one
+     torch.profiler run gives kernels a step, device idle, and the device
+     time of L1 and of the LAP cost.  Each other family then trains one
+     epoch on its partnet_chair config at published width on the slot
+     wire, gated the same way (T = 3 for DGL, RGL-Net and Refine).
 The smoke prints its total wall time; the line before the last is a JSON
 summary of the kernels; the last line is {"ok": true, "device": {...}}.
 """
@@ -110,6 +136,8 @@ from multi_part_assembly_tpu_torch.datasets.mesh_io import \
     MeshSampler  # noqa: E402
 from multi_part_assembly_tpu_torch.ops import chamfer as C  # noqa: E402
 from multi_part_assembly_tpu_torch.ops import cuda_build  # noqa: E402
+from multi_part_assembly_tpu_torch.ops import \
+    matching as LAP  # noqa: E402
 
 FLAGSHIP_CFG = os.path.join(
     ROOT, 'configs/pn_transformer/pn_transformer/'
@@ -120,9 +148,11 @@ B, P, N = 32, 20, 1000
 DATA_KEYS = ('part_ids', 'valid_matrix')
 CHAMFER_CU = 'multi_part_assembly_tpu_torch/csrc/chamfer.cu'
 SAMPLER_CU = 'multi_part_assembly_tpu_torch/csrc/device_sampler.cu'
+MATCHING_CU = 'multi_part_assembly_tpu_torch/csrc/matching.cu'
 TPU = 'multi_part_assembly_tpu/ops/chamfer.py'
 TPU_DS = 'multi_part_assembly_tpu/datasets/device_sampler.py'
-# (name, launch counter, TPU kernel it replaces, source)
+# (name, launch counter, TPU computation it replaces, source): B1-B8 replace
+# Pallas kernels; L1 (lap) the XLA solve `_solve_lap_single`
 KERNELS = [
     ('chamfer_pair[parts]', 'nn_parts', f'{TPU}:483', CHAMFER_CU),
     ('chamfer_pair[diag]', 'nn_diag', f'{TPU}:556', CHAMFER_CU),
@@ -132,6 +162,7 @@ KERNELS = [
     ('sample_chunked', 'sample_chunked', f'{TPU_DS}:269', SAMPLER_CU),
     ('nn_parts[off]', 'nn_off', f'{TPU}:284', CHAMFER_CU),
     ('nn_dir', 'nn_dir', f'{TPU}:110', CHAMFER_CU),
+    ('lap', 'lap', 'multi_part_assembly_tpu/ops/matching.py:25', MATCHING_CU),
 ]
 FUSED_KEYS = ('nn_parts', 'nn_diag', 'bwd_parts', 'bwd_diag')
 # face counts of the ragged soup set: sub-chunk, exactly one chunk, many
@@ -997,8 +1028,7 @@ def phase_repulsion():
         loss.sum().backward()
         return cd, loss.detach(), p.grad
 
-    C.reset_launches()
-    DS.reset_launches()
+    _reset_launches()
     kern = {name: run(limit, False) for name, limit in routes.items()}
     torch.cuda.synchronize()
     counters = _launches()
@@ -1071,7 +1101,13 @@ def _make_everyday_set(root):
 
 
 def _launches():
-    return {**C.LAUNCHES, **DS.LAUNCHES}
+    return {**C.LAUNCHES, **DS.LAUNCHES, **LAP.LAUNCHES}
+
+
+def _reset_launches():
+    C.reset_launches()
+    DS.reset_launches()
+    LAP.reset_launches()
 
 
 DENSE = ['data.device_sampling', 'True', 'data.device_table_layout', 'dense']
@@ -1085,9 +1121,10 @@ RUNS = [
      'chunked', 'sample_chunked', 'auto'),
     ('device sampling, dense layout', DENSE, 'dense', 'sample_dense',
      'auto'),
-    # last as well as first, so that an order effect shows
-    ('host wire, again', ['data.device_sampling', 'False'], None, None,
-     'auto'),
+    # last as well as first, so that an order effect shows; one epoch
+    # (4 steps), to make room for the semantic phases
+    ('host wire, again', ['data.device_sampling', 'False', 'exp.num_epochs',
+                          '1', 'exp.val_every', '1'], None, None, 'auto'),
     ('unfused chamfer route, dense layout', DENSE, 'dense', 'sample_dense',
      'off'),
     # the 6D pose head: B1-B4 take points rotated by matrices
@@ -1131,9 +1168,9 @@ class _Timed:
         return ', '.join(f'{1000 * t:.1f}' for t in self.seconds[name])
 
 
-def _check_metrics(tag, metrics, prefix='val'):
+def _check_metrics(tag, metrics, prefix='val', names=EVAL_KEYS):
     """The full metric set of a validation, present and finite."""
-    keys = [f'{prefix}/{k}' for k in EVAL_KEYS]
+    keys = [f'{prefix}/{k}' for k in names]
     missing = [k for k in keys if k not in metrics]
     bad = [k for k, v in metrics.items() if not math.isfinite(v)]
     print(f'{tag}: ' + ', '.join(
@@ -1166,8 +1203,7 @@ def _train_run(index, data_dir, tmp):
     try:
         with _Timed('save_checkpoint', '_export_val_vis') as timed:
             torch.cuda.reset_peak_memory_stats()
-            C.reset_launches()
-            DS.reset_launches()
+            _reset_launches()
             t0 = time.perf_counter()
             trainer = train_torch.main([
                 '--cfg_file', FLAGSHIP_CFG, '--ckp_dir', run_dir,
@@ -1224,11 +1260,11 @@ def _train_run(index, data_dir, tmp):
         raise AssertionError(f'{tag}: expected the {layout or "host"} wire')
     # per route: the fused run launches B1-B4 (the diagonal forward in
     # validation) and never B8; the unfused run B8 in training and in
-    # validation and never B1-B4; no run launches B7
+    # validation and never B1-B4; no geometric run launches B7 or L1
     train_keys = ('nn_off', ) if mode == 'off' else FUSED_KEYS
     val_key = 'nn_off' if mode == 'off' else 'nn_diag'
-    never = FUSED_KEYS + ('nn_dir', ) if mode == 'off' else \
-        ('nn_off', 'nn_dir')
+    never = FUSED_KEYS + ('nn_dir', 'lap') if mode == 'off' else \
+        ('nn_off', 'nn_dir', 'lap')
     for key in train_keys:
         if launches['train'][key] <= 0:
             raise AssertionError(f'{tag}: {key} never launched in training')
@@ -1315,8 +1351,7 @@ def phase_resume(data_dir, tmp):
             'exp.val_every', '1', *DENSE]
     cfg = train_torch.build_cfg(train_torch.parse_args(
         ['--cfg_file', FLAGSHIP_CFG, '--ckp_dir', ckp, '--opts', *opts]))
-    C.reset_launches()
-    DS.reset_launches()
+    _reset_launches()
     with _Timed('save_checkpoint', '_export_val_vis', '_try_resume') as timed:
         first = Trainer(cfg, 'cuda', ckp_dir=ckp)
         t0 = time.perf_counter()
@@ -1406,7 +1441,7 @@ def phase_resume(data_dir, tmp):
     for key in FUSED_KEYS + ('sample_dense', ):
         if launches[key] <= 0:
             raise AssertionError(f'resume: {key} never launched')
-    for key in ('nn_off', 'nn_dir', 'sample_chunked'):
+    for key in ('nn_off', 'nn_dir', 'sample_chunked', 'lap'):
         if launches[key]:
             raise AssertionError(f'resume: {key} launched {launches[key]} '
                                  'times')
@@ -1586,8 +1621,7 @@ def _family_run(family, data_dir, tmp):
     try:
         with _Timed('save_checkpoint', '_export_val_vis') as timed:
             torch.cuda.reset_peak_memory_stats()
-            C.reset_launches()
-            DS.reset_launches()
+            _reset_launches()
             t0 = time.perf_counter()
             trainer = train_torch.main([
                 '--cfg_file', os.path.join(ROOT, path), '--ckp_dir', run_dir,
@@ -1628,7 +1662,7 @@ def _family_run(family, data_dir, tmp):
     grad = 0 if family == 'identity' else T * n
     expected = {'nn_parts': T * n, 'nn_diag': T * n, 'bwd_parts': grad,
                 'bwd_diag': grad, 'sample_dense': n, 'sample_chunked': 0,
-                'nn_off': 0, 'nn_dir': 0}
+                'nn_off': 0, 'nn_dir': 0, 'lap': 0}
     print(f'{tag}: kernel launches in training {launches["train"]} '
           f'(expected {expected}: T = {T} a step), in validation '
           f'{launches["val"]}', flush=True)
@@ -1638,7 +1672,7 @@ def _family_run(family, data_dir, tmp):
     val = launches['val']
     if val['nn_diag'] <= 0 or val['sample_dense'] <= 0 or any(
             val[k] for k in ('bwd_parts', 'bwd_diag', 'nn_off', 'nn_dir',
-                             'sample_chunked')):
+                             'sample_chunked', 'lap')):
         raise AssertionError(f'{tag}: validation launches {val}')
     profile = _profile_steps(trainer)
     print(f'{tag}: torch.profiler over 2 steps: {_profile_line(profile)}',
@@ -1701,12 +1735,415 @@ def phase_families(data_dir, tmp):
         f'{f} {ms:.2f} ms/step, wait {w:.3f} ms, {mem:.2f} GiB, '
         f'{_profile_line(prof)}'
         for f, (ms, w, mem, prof) in rows.items()), flush=True)
-    C.reset_launches()
-    DS.reset_launches()
+    _reset_launches()
     _family_resume('dgl', data_dir, tmp)
     for k, v in _launches().items():
         totals[k] += v
     return totals
+
+
+# ---------------------------------------------------------------------------
+# the semantic (PartNet) path: L1, one MoN step card vs CPU, training
+# ---------------------------------------------------------------------------
+
+PARTNET_CFG = os.path.join(
+    ROOT, 'configs/pn_transformer/pn_transformer/'
+    'pn_transformer-32x1-cosine_400e-partnet_chair.py')
+SEM_KEYS = ('part_acc', 'connectivity_acc')
+# the other families' partnet_chair configs: (config, supervised
+# iterations a sample T)
+SEM_FAMILIES = {
+    'global': ('configs/global/global-32x1-cosine_200e-partnet_chair.py', 1),
+    'lstm': ('configs/lstm/lstm-32x1-cosine_200e-partnet_chair.py', 1),
+    'dgl': ('configs/dgl/dgl-32x1-cosine_300e-partnet_chair.py', 3),
+    'rgl_net': ('configs/rgl_net/rgl_net-32x1-cosine_300e-partnet_chair.py',
+                3),
+    'pn_transformer_refine': (
+        'configs/pn_transformer/pn_transformer_refine/'
+        'pn_transformer_refine-32x1-cosine_400e-partnet_chair.py', 3),
+    'identity': ('configs/identity/identity-32x1-cosine_200e-'
+                 'partnet_chair.py', 1),
+}
+# L1's cases: (M problems, n), the main path's M = B = 32 at n = P = 20
+# first, then M = S x B, and small and the widest n
+LAP_SHAPES = [(32, 20), (160, 20), (64, 2), (64, 3), (64, 32)]
+LAP_RTOL = 1e-6  # objective against scipy's, in f64 (scipy may tie-break
+#                  to another optimum)
+
+
+def _make_partnet_set(root):
+    """Synthetic PartNet-format set: 128 shapes of 2 to 20 parts of 1000
+    points, equivalent duplicates among the parts, 96 train and 32 val."""
+    from make_synthetic_data import generate_partnet
+    generate_partnet(root, n_shapes=128, min_parts=2, max_parts=20,
+                     num_points=N, seed=0, same_val=False,
+                     split_prefix='Chair.')
+    return root
+
+
+def _partnet_batch(data_dir, indices):
+    """Shapes of the train split through the host wire, on the CPU, as the
+    trainer unpacks them."""
+    from multi_part_assembly_tpu_torch.datasets.geometry import unpack_parts
+    from multi_part_assembly_tpu_torch.datasets.partnet import \
+        PartNetPartDataset
+    from multi_part_assembly_tpu_torch.utils import load_cfg_file
+    cfg = load_cfg_file(PARTNET_CFG)
+    ds = PartNetPartDataset(
+        data_dir, cfg.data.data_fn.format('train'), cfg.data.data_keys,
+        num_part_category=cfg.data.num_part_category,
+        max_num_part=cfg.data.max_num_part)
+    b = ds.collate_batch(list(indices))
+    t = {k: torch.from_numpy(np.asarray(v)) for k, v in b.items()
+         if k not in ('data_id', 'shape_id')}
+    t['part_pcs'] = unpack_parts(t.pop('part_pcs__packed').float(),
+                                 t.pop('pack_index'), t['part_valids'])
+    return t
+
+
+def _semantic_costs(data_dir):
+    """The block-masked LAP costs of a semantic batch, built as match_parts
+    builds them: 32 train shapes, predicted poses the GT's jittered, S = 5
+    subsamples -> [S * 32, 20, 20] on the card."""
+    from multi_part_assembly_tpu_torch.utils.transforms import transform_pc
+    batch = {k: v.cuda() for k, v in _partnet_batch(
+        data_dir, range(B)).items()}
+    g = torch.Generator(device='cuda').manual_seed(3)
+    v = batch['part_valids'][..., None]
+    quat = torch.nn.functional.normalize(batch['part_quat'] + 0.3 * v * (
+        torch.randn(batch['part_quat'].shape, generator=g, device='cuda')),
+        dim=-1)
+    trans = batch['part_trans'] + 0.05 * v * torch.randn(
+        batch['part_trans'].shape, generator=g, device='cuda')
+    costs = []
+    for _ in range(5):
+        idx = torch.randperm(N, generator=g, device='cuda')[:100]
+        pts = batch['part_pcs'][:, :, idx]
+        costs.append(LAP.lap_cost(LAP._pair_chamfer_cost(
+            transform_pc(trans, quat, pts, rot_type='quat'),
+            transform_pc(batch['part_trans'], batch['part_quat'], pts,
+                         rot_type='quat')), batch['match_ids']))
+    return torch.cat(costs).contiguous()
+
+
+def _objective(cost, perm):
+    c = cost.double().cpu()
+    return c.gather(2, perm.long().cpu()[..., None]).sum((1, 2))
+
+
+def phase_lap(data_dir):
+    """L1 against solve_lap_plain on the card (identical assignments) and
+    against scipy's optimum, on random, tie-heavy and a semantic batch's
+    block-masked costs; times of both at the main path's shapes.  Returns
+    the kernels line's entry (M = 32, n = 20, the semantic costs)."""
+    rng = np.random.default_rng(0)
+    sem = _semantic_costs(data_dir)
+    cases = [(f'semantic blocks M={sem.shape[0]} n=20', sem),
+             ('semantic blocks M=32 n=20', sem[:B].contiguous())]
+    for M_, n in LAP_SHAPES:
+        cases.append((f'random M={M_} n={n}', torch.tensor(
+            rng.random((M_, n, n)).astype(np.float32), device='cuda')))
+        cases.append((f'ties M={M_} n={n}', torch.tensor(
+            rng.integers(0, 3, (M_, n, n)).astype(np.float32),
+            device='cuda')))
+    for label, cost in cases:
+        k = LAP.solve_lap(cost)
+        p = LAP.solve_lap_plain(cost)
+        torch.cuda.synchronize()
+        differ = int((k != p).any(-1).sum())
+        best = _objective(cost, torch.from_numpy(
+            LAP.hungarian_scipy(cost.cpu().numpy())))
+        got = _objective(cost, k)
+        gap = float(((got - best).abs() / best.abs().clamp(min=1e-12)).max())
+        print(f'lap: {label}: problems whose assignment differs from the '
+              f'plain version {differ} (0 required); objective against '
+              f"scipy's optimum, largest relative gap {gap:.2e} "
+              f'(tolerance {LAP_RTOL:g})', flush=True)
+        if differ or gap > LAP_RTOL:
+            raise AssertionError(f'lap {label}: the kernel disagrees')
+    out = None
+    for label, cost in cases[:2]:
+        M_, n = cost.shape[0], cost.shape[1]
+        k_ms = _cuda_ms(lambda: LAP.solve_lap(cost), 50)
+        p_ms = _cuda_ms(lambda: LAP.solve_lap_plain(cost), 3)
+        # at least one Dijkstra step a row (4 operations a column: an
+        # addition, two subtractions, a comparison); bytes: the cost read
+        # once, the assignment written
+        bound = _bound(ops=4 * M_ * n * n, nbytes=4 * M_ * n * n + 4 * M_ * n)
+        print(f'lap: {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms '
+              f'({p_ms / k_ms:.0f}x), bound {bound[0]:.5f} ms ({bound[1]}; '
+              f'launch- and latency-bound at this size), share '
+              f'{bound[0] / k_ms:.4f}', flush=True)
+        if M_ == B:
+            out = (0.0, k_ms, p_ms, *bound)
+    return out
+
+
+def _noise_and_idx(b, S, seed):
+    g = torch.Generator().manual_seed(seed)
+    noise = [torch.randn((b, P, 32), generator=g) for _ in range(S)]
+    idx = [torch.randperm(N, generator=g)[:100] for _ in range(S)]
+    return noise, idx
+
+
+def phase_semantic_slice(data_dir):
+    """One MoN step (S = 5) of the partnet_chair PN-Transformer at full
+    width in f32, card against CPU, the same weights, head noise and match
+    subsamples: loss within 1e-4, gradients within 1e-3 relative L2; then
+    the eval logs of the batch (losses, part_acc, connectivity_acc) within
+    1e-5."""
+    from multi_part_assembly_tpu_torch.models import build_model
+    from multi_part_assembly_tpu_torch.train.core import mon_loss
+    from multi_part_assembly_tpu_torch.utils import load_cfg_file
+    cfg = load_cfg_file(PARTNET_CFG)
+    cfg.exp.bf16 = False
+    S = cfg.loss.sample_iter
+    batch = _partnet_batch(data_dir, range(2))
+    torch.manual_seed(0)
+    model = build_model(cfg, 'cpu').train()
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    noise, idx = _noise_and_idx(2, S, 11)
+    out = {}
+    for device in ('cpu', 'cuda'):
+        m = model.to(device)
+        m.zero_grad(set_to_none=True)
+        m.head.noise_override = list(noise)
+        loss, _ = mon_loss(m, {k: v.to(device) for k, v in batch.items()},
+                           cfg=cfg, training=True, match_idx=idx)
+        loss.backward()
+        out[device] = (float(loss.detach()), _grads(m))
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out['cpu'], out['cuda']
+    rel_loss = abs(l_gpu - l_cpu) / abs(l_cpu)
+    rel_grad = float((g_gpu - g_cpu).norm() / g_cpu.norm())
+    print(f'semantic slice: {S} samples, mon_loss card {l_gpu:.7f} vs CPU '
+          f'{l_cpu:.7f} (rel {rel_loss:.2e}, tolerance 1e-4); gradient rel. '
+          f'L2 diff {rel_grad:.2e} (tolerance 1e-3)', flush=True)
+    if not (math.isfinite(l_gpu) and rel_loss <= 1e-4 and rel_grad <= 1e-3):
+        raise AssertionError('semantic slice: the card disagrees with the '
+                             'CPU')
+    logs = {}
+    model.eval()
+    with torch.no_grad():
+        for device in ('cpu', 'cuda'):
+            m = model.to(device)
+            m.head.noise_override = list(noise)
+            _, lg = mon_loss(m, {k: v.to(device) for k, v in batch.items()},
+                             cfg=cfg, training=False, reduce=False,
+                             match_idx=idx)
+            logs[device] = {k: v.cpu().double() for k, v in lg.items()}
+    worst = {k: float(((logs['cuda'][k] - v).abs() /
+                       v.abs().clamp(min=1.0)).max())
+             for k, v in logs['cpu'].items()}
+    print('semantic slice: eval logs card vs CPU, largest difference '
+          '(tolerance 1e-5): ' + ', '.join(
+              f'{k} {d:.2e}' for k, d in sorted(worst.items())) +
+          f'; part_acc {logs["cuda"]["part_acc"].tolist()}', flush=True)
+    if any(k not in logs['cuda'] for k in SEM_KEYS) or \
+            any(d > 1e-5 for d in worst.values()) or \
+            any(k.startswith(('trans_m', 'trans_r', 'rot_m', 'rot_r'))
+                for k in logs['cuda']):
+        raise AssertionError('semantic slice: eval logs differ')
+
+
+def _profile_semantic(trainer, steps=2):
+    """_profile_steps's line plus the device time a step of L1 and of the
+    LAP cost (`pair_chamfer_cost`, a profiler range), from one run."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    trainer.train_loader.set_epoch(7)
+    batches = iter(trainer.train_loader)
+    trainer.train_step(next(batches))
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            trainer.train_step(next(batches))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    batches.close()
+    kernels = [ev for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return 'the profiler recorded no device event: not measured'
+    busy = sum(ev.time_range.elapsed_us() for ev in kernels) / 1e3 / steps
+    lap_ms = sum(ev.time_range.elapsed_us() for ev in kernels
+                 if 'lap_kernel' in ev.name) / 1e3 / steps
+    cost_ms = 0.0
+    for ev in prof.key_averages():
+        if ev.key == 'pair_chamfer_cost':
+            us = getattr(ev, 'device_time_total', None)
+            cost_ms = (us if us is not None else
+                       getattr(ev, 'cuda_time_total', 0.0)) / 1e3 / steps
+    step_ms = 1e3 * wall / steps
+    return (f'{len(kernels) / steps:.0f} device kernels a step, {busy:.2f} ms '
+            f'of device time in {step_ms:.2f} ms a step (device idle '
+            f'{100 * (1 - busy / step_ms):.1f}%); L1 {lap_ms:.4f} ms, '
+            f'pair_chamfer_cost {cost_ms:.4f} ms of device time a step')
+
+
+def _semantic_run(tag, cfg_path, opts, data_dir, run_dir, S, T, epochs):
+    """train_torch.main on a partnet_chair config at published width: the
+    given epochs and one validation with its checkpoint, the counters
+    reset just before it.  B1-B4 and L1 must launch exactly S x T a train
+    step (identity: B2/B4 never), S x (1, 2, 1) times a val batch for
+    B1, B3 and L1, and no other kernel ever."""
+    import train_torch
+    from multi_part_assembly_tpu_torch.train.trainer import Trainer
+    launches = {}
+    validate = Trainer.validate
+
+    def counted_validate(self, epoch):
+        launches['train'] = _launches()
+        metrics = validate(self, epoch)
+        launches['val'] = {k: v - launches['train'][k]
+                           for k, v in _launches().items()}
+        return metrics
+
+    Trainer.validate = counted_validate
+    try:
+        with _Timed('save_checkpoint', '_export_val_vis') as timed:
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            t0 = time.perf_counter()
+            trainer = train_torch.main([
+                '--cfg_file', cfg_path, '--ckp_dir', run_dir, '--opts',
+                'data.data_dir', data_dir, 'exp.num_epochs', str(epochs),
+                'exp.val_every', str(epochs), *opts])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            totals = _launches()
+    finally:
+        Trainer.validate = validate
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    with open(os.path.join(run_dir, 'metrics.jsonl')) as f:
+        train = [r for r in map(json.loads, f) if 'train/loss' in r]
+    losses = [r['train/loss'] for r in train]
+    steps = trainer.step_seconds
+    n = len(steps)
+    if n < 3 or not all(map(math.isfinite, losses)):
+        raise AssertionError(f'{tag}: expected >= 3 finite train steps, got '
+                             f'{losses}')
+    ms = 1000.0 * sum(steps[1:]) / len(steps[1:])
+    waits = [1000.0 * r['train/data_time'] for r in train]
+    wait_ms = sum(waits[1:]) / len(waits[1:])
+    table = trainer.part_tables['train']
+    where = 'host wire (packed f16 rows)' if table is None else \
+        f'resident part table of {table.nbytes} bytes'
+    print(f'{tag}: {where}; {n} train steps of batch {B}, S = {S}, first '
+          f'{1000 * steps[0]:.1f} ms, then {ms:.2f} ms/step = '
+          f'{B / (ms / 1000):.1f} samples/s; data wait {wait_ms:.3f} ms/step;'
+          f' peak memory {peak_gib:.2f} GiB; wall {wall:.1f} s; train '
+          f'losses {["%.5f" % v for v in losses]}', flush=True)
+    _check_metrics(tag, trainer.metrics, names=SEM_KEYS + ('loss', ))
+    bad = [k for k in trainer.metrics if k.startswith(
+        ('val/trans_m', 'val/trans_r', 'val/rot_m', 'val/rot_r'))]
+    saved = trainer.ckpt_mgr.all_steps()
+    print(f'{tag}: checkpoint save {timed.ms("save_checkpoint")} ms, val '
+          f'export {timed.ms("_export_val_vis")} ms; checkpoints kept '
+          f'{saved}', flush=True)
+    if saved != [epochs - 1] or bad:
+        raise AssertionError(f'{tag}: expected one checkpoint and no '
+                             f'geometric metrics, got {saved}, {bad}')
+    grad = 0 if 'identity' in cfg_path else S * T * n
+    expected = {k: 0 for k in _launches()}
+    expected.update(nn_parts=S * T * n, nn_diag=S * T * n, bwd_parts=grad,
+                    bwd_diag=grad, lap=S * T * n)
+    nv = len(trainer.val_loader)
+    val_expected = {k: 0 for k in _launches()}
+    val_expected.update(nn_parts=S * nv, nn_diag=2 * S * nv, lap=S * nv)
+    print(f'{tag}: kernel launches in training {launches["train"]} '
+          f'(expected S x T x steps = {S} x {T} x {n}), in validation '
+          f'{launches["val"]} (expected {val_expected})', flush=True)
+    if launches['train'] != expected or launches['val'] != val_expected:
+        raise AssertionError(f'{tag}: launches differ from the expected '
+                             'counts')
+    return trainer, totals, (ms, wait_ms, peak_gib)
+
+
+def phase_semantic(data_dir, tmp):
+    """The partnet_chair PN-Transformer at full width through
+    scripts/train_torch.py: three epochs, a validation and a checkpoint on
+    the slot wire (resident f16 table) and on the host wire; the slot-wire
+    run then resumes, its next epoch bitwise the uninterrupted one's; then
+    each other family one epoch on the slot wire.  Returns the launch
+    counts of these runs."""
+    from multi_part_assembly_tpu_torch.train.trainer import Trainer
+    from multi_part_assembly_tpu_torch.utils import load_cfg_file
+    S = load_cfg_file(PARTNET_CFG).loss.sample_iter
+    totals, rows = {}, {}
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+    runs = {}
+    for label, word in (('slot wire', 'True'), ('host wire', 'False')):
+        run_dir = os.path.join(tmp, f'semantic_{word}')
+        runs[label] = run_dir
+        trainer, launches, rows[label] = _semantic_run(
+            f'semantic[{label}]', PARTNET_CFG, ['data.device_table', word],
+            data_dir, run_dir, S, 1, 3)
+        add(launches)
+        if (trainer.part_tables['train'] is None) != (word == 'False'):
+            raise AssertionError(f'semantic[{label}]: wrong wire')
+        if label == 'slot wire':
+            first = trainer
+
+    # resume the slot-wire run: a new Trainer on its ckp_dir starts at
+    # epoch 3 with every tensor bitwise; epoch 3 in both from the same
+    # generator states gives the same losses and weights
+    tag = 'semantic[slot wire] resume'
+    _reset_launches()
+    second = Trainer(first.cfg, 'cuda', ckp_dir=runs['slot wire'],
+                     quiet=True)
+    differ = _differing(_state(second), _state(first))
+    print(f'{tag}: start_epoch {second.start_epoch}, step {second.step}; '
+          f'tensors not bitwise equal: {differ} of {len(_state(first))}',
+          flush=True)
+    if second.start_epoch != 3 or second.step != first.step or differ:
+        raise AssertionError(f'{tag}: the resumed state differs')
+    states = (first.generator.get_state(), torch.get_rng_state(),
+              torch.cuda.get_rng_state())
+    losses = _epoch_losses(first, 3)
+    second.generator.set_state(states[0])
+    torch.set_rng_state(states[1])
+    torch.cuda.set_rng_state(states[2])
+    again = _epoch_losses(second, 3)
+    after = _differing(_state(second), _state(first))
+    print(f'{tag}: epoch 3 in both from the same generator states: losses '
+          f'{["%.7f" % v for v in losses]}, bitwise equal {again == losses}'
+          f'; tensors not bitwise equal after it: {after}', flush=True)
+    if again != losses or after or not all(map(math.isfinite, losses)):
+        raise AssertionError(f'{tag}: the resumed epoch differs from the '
+                             'uninterrupted one')
+    add(_launches())
+    print(f'semantic[slot wire]: torch.profiler over 2 steps: '
+          f'{_profile_semantic(first)}', flush=True)
+    first.close()
+    second.close()
+
+    for family, (path, T) in SEM_FAMILIES.items():
+        # no PLY export: the PN-Transformer runs above exercise it
+        trainer, launches, rows[family] = _semantic_run(
+            f'semantic[{family}]', os.path.join(ROOT, path),
+            ['data.device_table', 'True', 'exp.val_sample_vis', '0'],
+            data_dir,
+            os.path.join(tmp, f'semantic_{family}'), S, T, 1)
+        add(launches)
+        trainer.close()
+    print('semantic: ' + '; '.join(
+        f'{k} {ms:.2f} ms/step, wait {w:.3f} ms, {mem:.2f} GiB'
+        for k, (ms, w, mem) in rows.items()), flush=True)
+    return totals
+
+
+def _timed(phase, *args):
+    """phase(*args), its wall time printed."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f'{phase.__name__}: {time.perf_counter() - t0:.1f} s', flush=True)
+    return out
 
 
 def main():
@@ -1722,21 +2159,27 @@ def main():
         print(f'data: host mesh sampler native (C++) '
               f'{MeshSampler().is_native}, library {mesh_io._LIB_PATH}',
               flush=True)
-        results = phase_kernels()
-        results.update(phase_sampler(data_dir, tmp))
-        phase_slice()
-        phase_family_slices()
-        repulsion_launches = phase_repulsion()
-        launches = phase_main(data_dir, tmp)
-        for k, v in phase_resume(data_dir, tmp).items():
-            launches[k] += v
-        for k, v in phase_families(data_dir, tmp).items():
-            launches[k] += v
+        partnet_dir = _make_partnet_set(os.path.join(tmp, 'partnet'))
+        print('data: synthetic PartNet set of 128 shapes (2-20 parts of '
+              f'{N} points; 96 train, 32 val)', flush=True)
+        results = _timed(phase_kernels)
+        results.update(_timed(phase_sampler, data_dir, tmp))
+        results['lap'] = _timed(phase_lap, partnet_dir)
+        _timed(phase_slice)
+        _timed(phase_family_slices)
+        _timed(phase_semantic_slice, partnet_dir)
+        repulsion_launches = _timed(phase_repulsion)
+        launches = _timed(phase_main, data_dir, tmp)
+        for phase in (_timed(phase_resume, data_dir, tmp),
+                      _timed(phase_families, data_dir, tmp),
+                      _timed(phase_semantic, partnet_dir, tmp)):
+            for k, v in phase.items():
+                launches[k] += v
     # B7 runs on no training path: its count is the repulsion runs'
     launches['nn_dir'] = repulsion_launches['nn_dir']
     # no single PyTorch call returns a nearest neighbour with its index, a
-    # witness scatter with its gather, or an alias-table surface sample:
-    # library_ms is null for every kernel
+    # witness scatter with its gather, an alias-table surface sample or a
+    # linear assignment: library_ms is null for every kernel
     summary = {'kernels': [
         {'name': name, 'route': 'cuda', 'source': source, 'replaces': rep,
          'launches': launches[key], 'max_abs_err': results[key][0],

@@ -1,5 +1,6 @@
-"""Model factory (port of multi_part_assembly_tpu/models/__init__.py:28-77,
-the seven geometric families with the PointNet encoder)."""
+"""Model factory (port of multi_part_assembly_tpu/models/__init__.py:28-77):
+the seven families with the PointNet encoder, on geometric or semantic
+data."""
 
 import torch
 
@@ -10,8 +11,9 @@ from .lstm import LSTMModel
 from .pn_transformer import PNTransformer, PNTransformerRefine
 from .rgl_net import RGLNet
 
-__all__ = ['build_model', 'IdentityModel', 'GlobalModel', 'LSTMModel',
-           'DGLModel', 'RGLNet', 'PNTransformer', 'PNTransformerRefine']
+__all__ = ['build_model', 'label_dim_of', 'IdentityModel', 'GlobalModel',
+           'LSTMModel', 'DGLModel', 'RGLNet', 'PNTransformer',
+           'PNTransformerRefine']
 
 
 def build_model(cfg, device='cuda'):
@@ -27,10 +29,19 @@ def build_model(cfg, device='cuda'):
     return _build(cfg).to(device)
 
 
+def label_dim_of(cfg):
+    """Width of the labels the pose heads read: instance_label's
+    max_num_part, plus part_label's num_part_category when `data_keys` has
+    it; 0 for geometric data, whose labels are empty."""
+    if cfg.data.dataset == 'geometry':
+        return 0
+    return cfg.data.max_num_part + (
+        cfg.data.num_part_category if 'part_label' in cfg.data.data_keys
+        else 0)
+
+
 def _build(cfg):
     name = cfg.model.name
-    if cfg.data.dataset != 'geometry':
-        raise NotImplementedError('semantic assembly is not ported yet')
     if name == 'identity':
         return IdentityModel(rot_type=cfg.model.rot_type)
     if cfg.model.encoder != 'pointnet':
@@ -39,6 +50,7 @@ def _build(cfg):
     common = dict(
         rot_type=cfg.model.rot_type, pc_feat_dim=cfg.model.pc_feat_dim,
         encoder_arch=cfg.model.encoder, noise_dim=cfg.loss.noise_dim,
+        label_dim=label_dim_of(cfg),
         compute_dtype=torch.bfloat16 if bool(cfg.exp.get('bf16', True))
         else torch.float32)
     if name == 'global':
@@ -49,7 +61,8 @@ def _build(cfg):
     if name in ('dgl', 'rgl_net'):
         cls = DGLModel if name == 'dgl' else RGLNet
         return cls(gnn_iter=cfg.model.gnn_iter,
-                   merge_node=cfg.model.merge_node, semantic=False, **common)
+                   merge_node=cfg.model.merge_node,
+                   semantic=cfg.data.dataset != 'geometry', **common)
     transformer = dict(
         transformer_feat_dim=cfg.model.transformer_feat_dim,
         transformer_heads=cfg.model.transformer_heads,

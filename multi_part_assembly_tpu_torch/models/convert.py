@@ -14,7 +14,9 @@ tests/test_golden_forward.py:50-120 and :178-232:
   - a FusedGRUCell keeps its fused wi [C, 3H] (merged r/z biases), wh
     [H, 3H] and bhn, transposed;
   - the pose head's rot_head is [4, 128] for quaternions and [6, 128] for
-    the 6D head (`rot_type='rmat'`), as its kernel's shape gives it;
+    the 6D head (`rot_type='rmat'`), as its kernel's shape gives it, and
+    its first layer has the label columns of a semantic build
+    (instance_label, part_label) and the noise columns the same way;
   - DGL / RGL-Net's per-round `edge_mlp{i}`, `node_mlp{i}`, `pose{i}` and
     `gru{i}`, and Refine's `corr{i}`, `pose{i}` and `corr_pos_enc`, become
     the port's ModuleLists.

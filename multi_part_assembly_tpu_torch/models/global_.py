@@ -16,7 +16,7 @@ __all__ = ['GlobalModel']
 class GlobalModel(nn.Module):
 
     def __init__(self, rot_type='quat', pc_feat_dim=128,
-                 encoder_arch='pointnet', noise_dim=32,
+                 encoder_arch='pointnet', noise_dim=32, label_dim=0,
                  compute_dtype=torch.float32):
         super().__init__()
         self.pc_feat_dim = pc_feat_dim
@@ -25,7 +25,7 @@ class GlobalModel(nn.Module):
         self.global_enc = build_encoder(encoder_arch, pc_feat_dim,
                                         compute_dtype=compute_dtype)
         self.head = StochasticPoseRegressor(
-            2 * pc_feat_dim, noise_dim, rot_type=rot_type,
+            2 * pc_feat_dim + label_dim, noise_dim, rot_type=rot_type,
             compute_dtype=compute_dtype)
 
     def precompute(self, data_dict):

@@ -107,14 +107,14 @@ class LSTMModel(nn.Module):
 
     def __init__(self, rot_type='quat', pc_feat_dim=128,
                  encoder_arch='pointnet', noise_dim=32, lstm_hidden_size=256,
-                 compute_dtype=torch.float32,
+                 label_dim=0, compute_dtype=torch.float32,
                  hidden_noise_override=None, teacher_force_override=None):
         super().__init__()
         self.enc = build_encoder(encoder_arch, pc_feat_dim,
                                  compute_dtype=compute_dtype)
         self.seq2seq = Seq2Seq(pc_feat_dim, hidden_size=lstm_hidden_size)
         self.head = StochasticPoseRegressor(
-            pc_feat_dim, noise_dim, rot_type=rot_type,
+            pc_feat_dim + label_dim, noise_dim, rot_type=rot_type,
             compute_dtype=compute_dtype)
         self.hidden_noise_override = hidden_noise_override
         self.teacher_force_override = teacher_force_override

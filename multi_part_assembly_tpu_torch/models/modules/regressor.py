@@ -58,18 +58,27 @@ class PoseRegressor(nn.Module):
 
 class StochasticPoseRegressor(PoseRegressor):
     """PoseRegressor with `noise_dim` Gaussian features appended to its
-    input, drawn from `generator` (JAX regressor.py:51-68)."""
+    input, drawn from `generator` (JAX regressor.py:51-68).
+
+    `noise_override`, a list of `[..., noise_dim]` tensors, replaces the
+    draws: each call takes the next one off the front (tests, and the
+    card-against-CPU checks of chip_smoke.py, give both sides the same
+    noise); None draws."""
 
     def __init__(self, feat_dim, noise_dim, rot_type='quat', norm_rot=True,
                  compute_dtype=torch.float32):
         super().__init__(feat_dim + noise_dim, rot_type, norm_rot,
                          compute_dtype)
         self.noise_dim = noise_dim
+        self.noise_override = None
 
     def forward(self, x, generator=None):
         if self.noise_dim > 0:
-            noise = torch.randn(x.shape[:-1] + (self.noise_dim, ),
-                                generator=generator, device=x.device,
-                                dtype=x.dtype)
+            if self.noise_override is not None:  # empty: IndexError
+                noise = self.noise_override.pop(0).to(x)
+            else:
+                noise = torch.randn(x.shape[:-1] + (self.noise_dim, ),
+                                    generator=generator, device=x.device,
+                                    dtype=x.dtype)
             x = torch.cat([x, noise], dim=-1)
         return super().forward(x)

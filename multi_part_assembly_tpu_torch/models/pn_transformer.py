@@ -78,7 +78,7 @@ class PNTransformerRefine(nn.Module):
                  transformer_feat_dim=512, transformer_heads=8,
                  transformer_layers=2, transformer_pre_ln=True,
                  transformer_pos_enc=(128, 128), pose_pc_feat=True,
-                 refine_steps=3, compute_dtype=torch.float32):
+                 refine_steps=3, label_dim=0, compute_dtype=torch.float32):
         super().__init__()
         self.rot_type = rot_type
         self.pose_pc_feat = pose_pc_feat
@@ -92,7 +92,8 @@ class PNTransformerRefine(nn.Module):
                 norm_first=transformer_pre_ln, compute_dtype=compute_dtype,
                 out_dim=pc_feat_dim)
             for _ in range(refine_steps)])
-        head_in = pc_feat_dim * (2 if pose_pc_feat else 1) + pose_dim
+        head_in = pc_feat_dim * (2 if pose_pc_feat else 1) + label_dim + \
+            pose_dim
         self.head = nn.ModuleList([
             StochasticPoseRegressor(head_in, noise_dim, rot_type=rot_type,
                                     compute_dtype=compute_dtype)

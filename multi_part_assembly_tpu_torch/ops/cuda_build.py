@@ -61,6 +61,8 @@ def _bind(lib):
         fn = getattr(lib, name)
         fn.restype = i
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+    lib.mpa_lap.restype = i
+    lib.mpa_lap.argtypes = [p, p, i, i, p]
     return lib
 
 

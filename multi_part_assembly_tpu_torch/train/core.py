@@ -1,9 +1,11 @@
 """Loss engine: the MoN (minimum-over-N) loss of one batch.
 
-Port of multi_part_assembly_tpu/train/core.py:30-206 for geometric
-assembly.  The model's precompute runs once; `sample_iter` samples follow
-in a loop (the JAX package vmaps them), each from the same batch-norm
-running statistics, and each batch element keeps its best sample.  Train
+Port of multi_part_assembly_tpu/train/core.py:30-206.  The model's
+precompute runs once; `sample_iter` samples follow in a loop (the JAX
+package vmaps them), each from the same batch-norm running statistics, and
+each batch element keeps its best sample.  Semantic assembly first matches
+the ground truth of equivalent parts to each prediction (ops/matching.py),
+one point subsample drawn for each supervised step of each sample.  Train
 or eval mode is the model's own; `training` picks the loss semantics
 (shape-CD divisor, eval metrics).
 """
@@ -11,7 +13,9 @@ or eval mode is the model's own; `training` picks the loss semantics
 import torch
 
 from ..models.modules.norm import MaskedBatchNorm
-from ..utils.eval_utils import calc_part_acc, rot_metrics, trans_metrics
+from ..ops.matching import match_parts
+from ..utils.eval_utils import (calc_connectivity_acc, calc_part_acc,
+                                rot_metrics, trans_metrics)
 from ..utils.loss import (rot_cosine_loss, rot_points_cd_loss,
                           rot_points_l2_loss, shape_cd_loss, trans_l2_loss)
 from ..utils.rotation import Rotation3D
@@ -36,18 +40,24 @@ def loss_weights_from_cfg(cfg_loss):
 
 def calc_loss(pred_rot_raw, pred_trans, data_dict, *, rot_type, semantic,
               training, use_rot_loss, use_rot_pt_l2_loss,
-              with_metrics=False):
-    """Losses (and, at eval, part accuracy and the translation and rotation
-    errors) of one prediction (JAX core.py:45-108).  Returns a dict of [B]
-    tensors."""
-    if semantic:
-        raise NotImplementedError(
-            'semantic assembly (part matching) is not ported yet')
+              with_metrics=False, generator=None, match_idx=None):
+    """Losses (and, at eval, the metrics) of one prediction (JAX
+    core.py:45-108).  Semantic data first matches the GT poses of
+    equivalent parts to the prediction, its point subsample drawn from
+    `generator`, or the next of the iterator `match_idx`; its eval metrics
+    are part_acc and connectivity_acc, geometric data's part_acc and the
+    translation and rotation errors.  Returns a dict of [B] tensors."""
     part_pcs = data_dict['part_pcs']
     valids = data_dict['part_valids']
     pred_rot = Rotation3D(pred_rot_raw, rot_type)
     new_trans = data_dict['part_trans'].detach()
-    new_rot = Rotation3D(data_dict['part_rot_raw'].detach(), rot_type)
+    new_rot_raw = data_dict['part_rot_raw'].detach()
+    if semantic:
+        new_trans, new_rot_raw = match_parts(
+            part_pcs, pred_trans, pred_rot.rot, new_trans, new_rot_raw,
+            data_dict['match_ids'], rot_type, generator=generator,
+            sample_idx=None if match_idx is None else next(match_idx))
+    new_rot = Rotation3D(new_rot_raw, rot_type)
 
     loss_dict = {
         'trans_loss': trans_l2_loss(pred_trans, new_trans, valids),
@@ -65,6 +75,11 @@ def calc_loss(pred_rot_raw, pred_trans, data_dict, *, rot_type, semantic,
     if with_metrics:
         loss_dict['part_acc'] = calc_part_acc(part_pcs, pred_trans, new_trans,
                                               pred_rot, new_rot, valids)
+        if semantic:
+            if 'contact_points' in data_dict:
+                loss_dict['connectivity_acc'] = calc_connectivity_acc(
+                    pred_trans, pred_rot, data_dict['contact_points'])
+            return loss_dict
         for metric in ('mse', 'rmse', 'mae'):
             loss_dict[f'trans_{metric}'] = trans_metrics(
                 pred_trans, new_trans, valids, metric)
@@ -96,14 +111,17 @@ def loss_one_sample(pred, data_dict, **kw):
 
 
 def mon_loss(model, data_dict, *, cfg, training, reduce=True,
-             generator=None):
+             generator=None, match_idx=None):
     """Minimum-over-N loss (JAX core.py:143-206).
 
     Returns (scalar loss, log dict).  Logs are batch means, or per-element
     [B] vectors with reduce=False (eval slices off padding rows before
     averaging).  BatchNorm running statistics update in place when the
     model is in train mode: `precompute`'s update, then the mean of the
-    samples' updates.
+    samples' updates.  Semantic data draws each sample's noise, then one
+    match subsample for each supervised step, from `generator`;
+    `match_idx`, a list of index tensors, gives the subsamples instead,
+    sample by sample and step by step.
     """
     semantic = cfg.data.dataset != 'geometry'
     sample_iter = cfg.loss.get('sample_iter', 1)
@@ -116,7 +134,8 @@ def mon_loss(model, data_dict, *, cfg, training, reduce=True,
     kw = dict(rot_type=rot_type, semantic=semantic, training=training,
               use_rot_loss=cfg.loss.get('use_rot_loss', False),
               use_rot_pt_l2_loss=cfg.loss.get('use_rot_pt_l2_loss', False),
-              with_metrics=not training)
+              with_metrics=not training, generator=generator,
+              match_idx=None if match_idx is None else iter(match_idx))
 
     feats = model.precompute(data_dict)
     # Train-mode BN in `sample` updates the running statistics.  The

@@ -5,13 +5,16 @@ loop, validation every `val_every` epochs with batch-size-weighted metric
 means, the sampled-assembly PLY export of each validation, checkpoints that
 keep the 5 best epochs by `val/part_acc` with auto-resume from the newest,
 weight loading, the test loop, and JSONL logging with an optional wandb
-mirror.  Batches come over the host wire or, with `data.device_sampling`,
-over the slot wire, whose points the card samples itself (JAX
-trainer.py:267-311 and :537-548).  One train step (JAX parallel/mesh.py:
-122-140) augments the batch on the device, runs `mon_loss`, takes its
-gradient and an Adam step at the scheduled lr.  The TPU runtime's
-execution kicks and host-to-device probe have no counterpart here; data
-parallelism is not ported yet.
+mirror.  Geometric batches come over the host wire or, with
+`data.device_sampling`, over the slot wire, whose points the card samples
+itself (JAX trainer.py:267-311 and :537-548); semantic (PartNet) batches
+over the host wire's packed f16 rows or, with `data.device_table`, as slots
+into a resident table of the split's clouds (JAX trainer.py:324-353 and
+:505-517).  One train step (JAX parallel/mesh.py:122-140) augments a
+geometric batch on the device (a PartNet batch carries its poses), runs
+`mon_loss`, takes its gradient and an Adam step at the scheduled lr.  The
+TPU runtime's execution kicks and host-to-device probe have no
+counterpart here; data parallelism is not ported yet.
 """
 
 import json
@@ -21,19 +24,22 @@ import time
 import numpy as np
 import torch
 
+from ..datasets import build_dataloader
 from ..datasets.device_sampler import sample_and_expand
 from ..datasets.geometry import (augment_geometry_batch,
-                                 build_geometry_dataloader,
-                                 enable_device_sampling)
+                                 enable_device_sampling, unpack_parts)
+from ..datasets.part_table import gather_part_table
+from ..datasets.partnet import enable_device_table
 from ..models import build_model
 from .checkpoint import CheckpointManager, load_state
 from .core import mon_loss
 from .state import build_optimizer, clip_gradients
 
 __all__ = ['Trainer', 'JSONLLogger', 'WandbLogger', 'build_logger',
-           'device_sampling_enabled']
+           'device_sampling_enabled', 'device_table_enabled']
 
-_SAMPLING_WORDS = {'true': True, 'false': False, 'auto': 'auto'}
+_SWITCH_WORDS = {'true': True, 'false': False, 'auto': 'auto'}
+_HOST_KEYS = ('data_id', 'shape_id')  # host-only metadata
 
 
 class JSONLLogger:
@@ -132,27 +138,37 @@ def build_logger(cfg, log_dir, quiet=False):
 
 def _to_device(batch, device):
     return {k: v.to(device, non_blocking=True) for k, v in batch.items()
-            if k != 'data_id'}
+            if k not in _HOST_KEYS}
+
+
+def _switch(cfg, key, device, dataset):
+    """`cfg.data.<key>`: True, False or 'auto', or one of the strings
+    'true', 'false', 'auto' in any case (the key is absent from the
+    configs, so `--opts data.<key> False` arrives as the string 'False',
+    which the JAX trainer reads as on).  Any other value raises.  'auto' is
+    on for `dataset` data on a CUDA device, as the JAX trainer's is on an
+    accelerator."""
+    value = cfg.data.get(key, 'auto')
+    if isinstance(value, str) and value.lower() in _SWITCH_WORDS:
+        value = _SWITCH_WORDS[value.lower()]
+    elif not isinstance(value, bool):
+        raise ValueError(f"data.{key}: expected True, False or 'auto', got "
+                         f'{value!r}')
+    if value == 'auto':
+        return device.type == 'cuda' and cfg.data.dataset == dataset
+    return value
 
 
 def device_sampling_enabled(cfg, device):
-    """Whether the run samples its points on the device.
+    """Whether a geometric run samples its points on the device
+    (`data.device_sampling`, JAX trainer.py:541-545)."""
+    return _switch(cfg, 'device_sampling', device, 'geometry')
 
-    `data.device_sampling` is True, False or 'auto', or one of the strings
-    'true', 'false', 'auto' in any case: the key is absent from the
-    configs, so `--opts data.device_sampling False` arrives as the string
-    'False' (which the JAX trainer, trainer.py:541-545, reads as on).  Any
-    other value raises.  'auto' is on for geometry data on a CUDA device,
-    as the JAX trainer's is on an accelerator."""
-    value = cfg.data.get('device_sampling', 'auto')
-    if isinstance(value, str) and value.lower() in _SAMPLING_WORDS:
-        value = _SAMPLING_WORDS[value.lower()]
-    elif not isinstance(value, bool):
-        raise ValueError("data.device_sampling: expected True, False or "
-                         f"'auto', got {value!r}")
-    if value == 'auto':
-        return device.type == 'cuda' and cfg.data.dataset == 'geometry'
-    return value
+
+def device_table_enabled(cfg, device):
+    """Whether a PartNet run keeps its clouds in a resident device table
+    (`data.device_table`, JAX trainer.py:505-517)."""
+    return _switch(cfg, 'device_table', device, 'partnet')
 
 
 class Trainer:
@@ -194,14 +210,21 @@ class Trainer:
             self._try_resume()
 
     def _build_loaders(self, cfg):
-        self.train_loader, self.val_loader = build_geometry_dataloader(cfg)
-        # the slot wire: tables per split (None = the host wire)
+        self.train_loader, self.val_loader = build_dataloader(cfg)
+        loaders = (('train', self.train_loader), ('val', self.val_loader))
+        # the slot wires, per split (None = the host wire): geometric
+        # sampling tables, or PartNet's resident point table
         self.tables = {'train': None, 'val': None}
-        if device_sampling_enabled(cfg, self.device):
-            self.tables = {
-                name: enable_device_sampling(loader, cfg, self.device)
-                for name, loader in (('train', self.train_loader),
-                                     ('val', self.val_loader))}
+        self.part_tables = {'train': None, 'val': None}
+        if cfg.data.dataset == 'geometry':
+            if device_sampling_enabled(cfg, self.device):
+                self.tables = {
+                    name: enable_device_sampling(loader, cfg, self.device)
+                    for name, loader in loaders}
+        elif device_table_enabled(cfg, self.device):
+            self.part_tables = {
+                name: enable_device_table(loader, cfg, self.device)
+                for name, loader in loaders}
 
     # ------------------------------------------------------------------
     # checkpoints (JAX trainer.py:641-673)
@@ -246,9 +269,25 @@ class Trainer:
     # loops
     # ------------------------------------------------------------------
     def _augment(self, batch, generator=None):
-        """A host batch -> the augmented batch on the device, its rotations
-        drawn from `generator` (default: the trainer's).  A slot-wire batch
-        is sampled and expanded on the device first."""
+        """A host batch -> the batch on the device, a geometric one
+        augmented, its rotations drawn from `generator` (default: the
+        trainer's).  A geometric slot-wire batch is sampled and expanded on
+        the device first; a PartNet batch's clouds are unpacked from the
+        host wire's rows or gathered from the resident table, and it is
+        not augmented (JAX trainer.py:339-358)."""
+        if 'part_pcs__packed' in batch or 'part_slots' in batch:
+            batch = dict(batch)
+            ptable = batch.pop('__ptable__', None)
+            dev = _to_device(batch, self.device)
+            valids = dev['part_valids']
+            if ptable is not None:
+                dev['part_pcs'] = gather_part_table(
+                    ptable.table, dev.pop('part_slots'), valids)
+            else:
+                dev['part_pcs'] = unpack_parts(
+                    dev.pop('part_pcs__packed').float(),
+                    dev.pop('pack_index'), valids)
+            return dev
         if 'part_slots__packed' in batch:
             batch = dict(batch)
             tables = batch.pop('__tables__')

@@ -1,9 +1,11 @@
 """End-to-end convergence check of the PyTorch/CUDA port through its CLIs.
 
-The port's counterpart of the geometry rows of scripts/e2e_check.py:43-70,
-with their configs, epochs and thresholds.  On a synthetic Breaking-Bad
-tree (8 shapes of 2-3 box pieces, the val split the same shapes) it runs,
-each as a subprocess,
+The port's counterpart of the rows of scripts/e2e_check.py:43-113, with
+their configs, epochs and thresholds: the geometry rows on a synthetic
+Breaking-Bad tree (8 shapes of 2-3 box pieces), the semantic rows
+(`*_partnet`) on a synthetic PartNet tree (`generate_partnet`: 8 shapes of
+2-3 parts with equivalent duplicates, 256 points a part), the val split
+the same shapes in both.  It runs, each as a subprocess,
 
   1. scripts/train_torch.py until the last epoch, and requires the best
      val/part_acc to reach the row's threshold;
@@ -21,7 +23,9 @@ reports the part accuracy of the identity pose, the reference's floor.
         [--keep] [--extra_opts key value ...]
 
 The recipe is scripts/e2e_check.py's: 3 parts at most, batch 8, 256 points,
-val every quarter of the epochs, trans weight 10, MoN off, rot_range 0.5.
+val every quarter of the epochs, trans weight 10, MoN off (sample_iter 1)
+except on the `_mon` row, which keeps the semantic recipe's sample_iter 5
+and 32-d noise, and rot_range 0.5 on geometry rows only.
 """
 
 import argparse
@@ -34,7 +38,7 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# the geometry rows of scripts/e2e_check.py:43-70
+# the rows of scripts/e2e_check.py:43-113
 FAMILIES = {
     'pn_transformer': dict(
         cfg='configs/pn_transformer/pn_transformer/'
@@ -59,6 +63,33 @@ FAMILIES = {
     'identity': dict(
         cfg='configs/identity/identity-32x1-cosine_200e-everyday.py',
         eval_only=True),
+    'pn_transformer_partnet': dict(
+        cfg='configs/pn_transformer/pn_transformer/'
+            'pn_transformer-32x1-cosine_400e-partnet_chair.py',
+        task='semantic', epochs=400, threshold=0.9),
+    'pn_transformer_refine_partnet': dict(
+        cfg='configs/pn_transformer/pn_transformer_refine/'
+            'pn_transformer_refine-32x1-cosine_400e-partnet_chair.py',
+        task='semantic', epochs=400, threshold=0.9),
+    'global_partnet': dict(
+        cfg='configs/global/global-32x1-cosine_200e-partnet_chair.py',
+        task='semantic', epochs=800, threshold=0.9),
+    'lstm_partnet': dict(
+        cfg='configs/lstm/lstm-32x1-cosine_200e-partnet_chair.py',
+        task='semantic', epochs=1000, threshold=0.75),
+    'dgl_partnet': dict(
+        cfg='configs/dgl/dgl-32x1-cosine_300e-partnet_chair.py',
+        task='semantic', epochs=800, threshold=0.8),
+    'rgl_net_partnet': dict(
+        cfg='configs/rgl_net/rgl_net-32x1-cosine_300e-partnet_chair.py',
+        task='semantic', epochs=3200, threshold=0.9),
+    'pn_transformer_partnet_mon': dict(
+        cfg='configs/pn_transformer/pn_transformer/'
+            'pn_transformer-32x1-cosine_400e-partnet_chair.py',
+        task='semantic', epochs=400, threshold=0.9, mon=True),
+    'identity_partnet': dict(
+        cfg='configs/identity/identity-32x1-cosine_200e-partnet_chair.py',
+        task='semantic', eval_only=True),
 }
 
 
@@ -96,10 +127,13 @@ def check(args, data_dir, work):
         'exp.val_every', str(max(1, epochs // 4)),
         'exp.num_workers', '0',
         'loss.trans_loss_w', '10.',
-        'loss.sample_iter', '1',
-        'data.rot_range', '0.5',
         'exp.ckp_dir', os.path.join(work, 'cli_tmp'),
-    ] + list(args.extra_opts)
+    ]
+    if not spec.get('mon'):
+        opts += ['loss.sample_iter', '1']
+    if spec.get('task') != 'semantic':
+        opts += ['data.rot_range', '0.5']  # the partnet schema has none
+    opts += list(args.extra_opts)
     test = [sys.executable, 'scripts/test_torch.py', '--cfg_file', cfg,
             '--device', args.device]
     result = {'model': name, 'device': args.device}
@@ -173,11 +207,16 @@ def main(argv=None):
     work = args.workdir or tempfile.mkdtemp(prefix='mpa_e2e_torch_')
     os.makedirs(work, exist_ok=True)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from make_synthetic_data import generate
+    from make_synthetic_data import generate, generate_partnet
     t0 = time.perf_counter()
     try:
         data_dir = os.path.join(work, 'data')
-        generate(data_dir, n_shapes=8, min_parts=2, max_parts=3, seed=1)
+        if FAMILIES[args.model].get('task') == 'semantic':
+            generate_partnet(data_dir, n_shapes=8, min_parts=2, max_parts=3,
+                             num_points=args.num_points, seed=1,
+                             split_prefix='Chair.')
+        else:
+            generate(data_dir, n_shapes=8, min_parts=2, max_parts=3, seed=1)
         result = check(args, data_dir, work)
     finally:
         if not args.keep:

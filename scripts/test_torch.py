@@ -9,8 +9,10 @@ state file in it, or a run directory, which resolves to its newest
 checkpoint.  `--category all` tests every category with one Trainer, its
 loaders swapped for each, and prints the LaTeX row of scripts/test.py
 (rotations x1, translations x100, shape chamfer x1000, part accuracy
-x100).  `--device` defaults to `cuda` and raises when CUDA is absent; the
-CPU runs only when `--device cpu` asks for it.
+x100); it and any other `--category` apply to geometric configs only.
+`--device` defaults to `cuda` and raises when CUDA is absent; the CPU runs
+only when `--device cpu` asks for it.  A PartNet config reports part_acc
+and connectivity_acc beside its losses.
 """
 
 import argparse
@@ -77,6 +79,8 @@ def main(argv=None):
         cfg.data.min_num_part = args.min_num_part
     if args.max_num_part > 0:
         cfg.data.max_num_part = args.max_num_part
+    if args.category and cfg.data.dataset != 'geometry':
+        raise ValueError('--category applies to geometric configs only')
 
     if args.category != 'all':
         if args.category:

@@ -12,7 +12,11 @@ error, and the CPU runs only when `--device cpu` asks for it.  With
 data on a CUDA device) the card samples the surface points itself from
 resident mesh tables, laid out by `data.device_table_layout dense|chunked`
 (default: the auto rule); `data.device_sampling False` samples them on the
-host and copies the clouds.
+host and copies the clouds.  A PartNet (semantic) config keeps its part
+clouds in a resident f16 table on the card with `data.device_table True`
+(the default 'auto' is on for PartNet data on a CUDA device); `False`
+ships each batch's clouds as packed f16 rows.  `--category` applies to
+geometric configs only.
 
 Every validation saves a checkpoint under `<ckp_dir>/models/<epoch>/`,
 keeping the 5 best by val/part_acc, and exports sampled assemblies as PLY
@@ -68,6 +72,8 @@ def build_cfg(args):
     if args.opts:
         cfg.merge_from_list(args.opts)
     if args.category:
+        if cfg.data.dataset != 'geometry':
+            raise ValueError('--category applies to geometric configs only')
         cfg.data.category = args.category
     if args.overfit > 0:
         cfg.data.overfit = args.overfit
@@ -112,6 +118,10 @@ def main(argv=None):
         if tables is not None:
             print(f'{split}: device sampling, {tables.layout} tables of '
                   f'{tables.nbytes} bytes', flush=True)
+    for split, table in trainer.part_tables.items():
+        if table is not None:
+            print(f'{split}: resident part table of {table.nbytes} bytes',
+                  flush=True)
     if args.profile:
         profile_epoch(trainer, args.profile)
     trainer.fit()

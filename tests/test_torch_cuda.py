@@ -17,7 +17,9 @@ the card against the CPU.  The sampling kernels' points
 bit for bit and their face draws exactly, for the same reason, on the card
 and against the CPU (the plain versions take a correctly rounded square
 root, as the kernels do).  Losses on the card within 1e-5 relative of the
-CPU's.
+CPU's.  The LAP kernel's assignments equal the plain version's exactly, on
+the card and on the CPU (the same arithmetic in the same order, ties to
+the first minimum).
 """
 
 import os
@@ -35,6 +37,8 @@ from multi_part_assembly_tpu_torch.datasets import \
 from multi_part_assembly_tpu_torch.datasets.mesh_io import \
     MeshSampler  # noqa: E402
 from multi_part_assembly_tpu_torch.ops import chamfer as TC  # noqa: E402
+from multi_part_assembly_tpu_torch.ops import \
+    matching as TM  # noqa: E402
 
 
 @pytest.fixture
@@ -483,3 +487,42 @@ def test_sampler_layouts_agree_and_count(cuda, tmp_path):
         assert torch.isnan(kernel(TDS.table_records(t.table), t.n_faces,
                                   bad, u)).all()
     assert TDS.LAUNCHES == {'sample_dense': 2, 'sample_chunked': 2}
+
+
+def _lap_costs(kind, M, n, seed):
+    rng = np.random.default_rng(seed)
+    if kind == 'random':
+        return rng.random((M, n, n)).astype(np.float32)
+    if kind == 'ties':
+        return rng.integers(0, 3, (M, n, n)).astype(np.float32)
+    groups = torch.tensor(rng.integers(0, max(2, n // 3), (M, n)))
+    base = torch.tensor((0.01 * rng.random((M, n, n))).astype(np.float32))
+    return TM.lap_cost(base, groups).numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['random', 'ties', 'blocks'])
+@pytest.mark.parametrize('M,n', [(160, 20), (32, 20), (7, 2), (9, 3),
+                                 (5, 32), (3, 1)])
+def test_lap_kernel_matches_plain(cuda, kind, M, n):
+    """Kernel L1 against solve_lap_plain on the card and on the CPU: the
+    same assignment exactly; one launch counted."""
+    cost = _lap_costs(kind, M, n, seed=M + n)
+    TM.reset_launches()
+    got = TM.solve_lap(torch.tensor(cost, device=cuda))
+    torch.cuda.synchronize()
+    assert TM.LAUNCHES['lap'] == 1
+    assert got.dtype == torch.int32 and got.shape == (M, n)
+    plain = TM.solve_lap_plain(torch.tensor(cost, device=cuda))
+    cpu = TM.solve_lap_plain(torch.tensor(cost))
+    assert torch.equal(got, plain)
+    assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.cuda
+def test_lap_kernel_refuses_more_than_32_columns(cuda):
+    with pytest.raises(ValueError, match='n <= 32'):
+        TM.solve_lap(torch.zeros((2, 33, 33), device=cuda))
+    out = TM.solve_lap(torch.zeros((0, 4, 4), device=cuda))
+    assert out.shape == (0, 4)
+

@@ -40,6 +40,20 @@ CONFIGS = {
                              'everyday.py',
     'identity': 'configs/identity/identity-32x1-cosine_200e-everyday.py',
 }
+# the partnet_chair configs, one a family
+SEMANTIC_CONFIGS = {
+    'pn_transformer': 'configs/pn_transformer/pn_transformer/'
+                      'pn_transformer-32x1-cosine_400e-partnet_chair.py',
+    'pn_transformer_refine': 'configs/pn_transformer/pn_transformer_refine/'
+                             'pn_transformer_refine-32x1-cosine_400e-'
+                             'partnet_chair.py',
+    'global': 'configs/global/global-32x1-cosine_200e-partnet_chair.py',
+    'lstm': 'configs/lstm/lstm-32x1-cosine_200e-partnet_chair.py',
+    'dgl': 'configs/dgl/dgl-32x1-cosine_300e-partnet_chair.py',
+    'rgl_net': 'configs/rgl_net/rgl_net-32x1-cosine_300e-partnet_chair.py',
+    'identity': 'configs/identity/identity-32x1-cosine_200e-'
+                'partnet_chair.py',
+}
 # the everyday configs at a small size
 NARROW = {
     'global': ['model.pc_feat_dim', str(C)],
@@ -50,6 +64,9 @@ NARROW = {
         'model.pc_feat_dim', str(C), 'model.transformer_feat_dim', '32',
         'model.transformer_heads', '4', 'model.refine_steps', '2'],
     'identity': [],
+    'pn_transformer': [
+        'model.pc_feat_dim', str(C), 'model.transformer_feat_dim', '32',
+        'model.transformer_heads', '4', 'model.transformer_layers', '2'],
 }
 
 
@@ -197,19 +214,22 @@ def jax_mon_step(model, var, data, cfg, training=True):
                 new_stats=to_np(new_stats))
 
 
-def torch_mon_step(net, data, cfg, training=True):
-    """The port's mon_loss on the same batch; in training its gradients
-    (None as zeros) and the module's state after the step."""
+def torch_mon_step(net, data, cfg, training=True, match_idx=None):
+    """The port's mon_loss on the same batch (semantic data: the match
+    subsamples `match_idx`, as tensors); in training its gradients (None as
+    zeros) and the module's state after the step."""
     tdata = to_torch(data)
+    kw = {} if match_idx is None else \
+        {'match_idx': [torch.tensor(np.asarray(i)) for i in match_idx]}
     if not training:
         net.eval()
         with torch.no_grad():
             _, logs = mon_loss(net, tdata, cfg=cfg, training=False,
-                               reduce=False)
+                               reduce=False, **kw)
         return {k: v.numpy() for k, v in logs.items()}
     net.train()
     net.zero_grad(set_to_none=True)
-    loss, logs = mon_loss(net, tdata, cfg=cfg, training=True)
+    loss, logs = mon_loss(net, tdata, cfg=cfg, training=True, **kw)
     if loss.requires_grad:
         loss.backward()
     grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad.clone())
