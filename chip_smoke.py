@@ -64,7 +64,8 @@ Phases, each printing its own line(s); any failure exits non-zero:
      PN-Transformer at full width on two shapes of a synthetic PartNet
      set, card against CPU with the head noise and the match subsamples
      given to both (loss 1e-4, gradients 1e-3 relative L2), and its eval
-     logs (losses, part_acc, connectivity_acc) within 1e-5;
+     logs (losses, part_acc, connectivity_acc) within 1e-5 on flag-first
+     contact matrices, connectivity_acc above 0;
   5. main path: scripts/train_torch.py's main on the flagship config at
      full width on a synthetic everyday set, runs of three epochs (12
      steps of batch 32) and a validation each: the host wire
@@ -109,7 +110,21 @@ Phases, each printing its own line(s); any failure exits non-zero:
      torch.profiler run gives kernels a step, device idle, and the device
      time of L1 and of the LAP cost.  Each other family then trains one
      epoch on its partnet_chair config at published width on the slot
-     wire, gated the same way (T = 3 for DGL, RGL-Net and Refine).
+     wire, gated the same way (T = 3 for DGL, RGL-Net and Refine);
+  9. encoders: the flagship config with DGCNN, PointNet++ SSG and MSG at
+     full width.  One MoN step of each in f32 on one shape of the slice
+     batch, card against CPU, the card given the CPU's kNN graphs, FPS
+     samples and ball sets (how many rows differ when it makes its own is
+     printed): loss 1e-4, gradients 1e-3 relative L2 plus twice the card
+     gradient's movement under 1e-7/1e-6 nudges, DGCNN's gradients bitwise
+     from one card run to the next, and the eval logs; then
+     scripts/train_torch.py's main with each, one epoch (4 steps) at batch
+     32 (MSG at 16 when 32 does not fit the card, said so) on the dense
+     slot wire with a validation and a checkpoint, gated as phase 7 with
+     T = 1; step time, data wait, peak memory, and one torch.profiler run
+     of two steps: kernels a step, device idle, and the device and host
+     time of the ranges knn, neighborhood_reduce (and _backward),
+     furthest_point_sample and ball_query.
 The smoke prints its total wall time; the line before the last is a JSON
 summary of the kernels; the last line is {"ok": true, "device": {...}}.
 """
@@ -136,8 +151,11 @@ from multi_part_assembly_tpu_torch.datasets.mesh_io import \
     MeshSampler  # noqa: E402
 from multi_part_assembly_tpu_torch.ops import chamfer as C  # noqa: E402
 from multi_part_assembly_tpu_torch.ops import cuda_build  # noqa: E402
+from multi_part_assembly_tpu_torch.ops import knn as KNN  # noqa: E402
 from multi_part_assembly_tpu_torch.ops import \
     matching as LAP  # noqa: E402
+from multi_part_assembly_tpu_torch.ops import \
+    sampling as SMP  # noqa: E402
 
 FLAGSHIP_CFG = os.path.join(
     ROOT, 'configs/pn_transformer/pn_transformer/'
@@ -907,6 +925,31 @@ EVAL_KEYS = ('part_acc',) + tuple(f'{k}_{m}' for k in ('trans', 'rot')
                                   for m in ('mse', 'rmse', 'mae'))
 
 
+class _indices:
+    """The port's kNN graphs, FPS samples and ball sets handed over
+    (consumed in order) and/or recorded, for as long as the block runs;
+    yields (kNN results, {'fps': [...], 'ball': [...]}) when recording."""
+
+    def __init__(self, graph=(), fps=(), ball=(), record=False):
+        self.args = (list(graph), list(fps), list(ball), record)
+
+    def __enter__(self):
+        graph, fps, ball, record = self.args
+        KNN.set_knn_override(graph, record=record)
+        SMP.set_sampling_override(fps, ball, record=record)
+        return KNN.knn_calls(), SMP.sampling_calls()
+
+    def __exit__(self, *exc):
+        KNN.set_knn_override()
+        SMP.set_sampling_override()
+
+
+def _given(graph, sampling):
+    """_indices' keywords that replay a recording."""
+    return dict(graph=list(graph), fps=list(sampling['fps']),
+                ball=list(sampling['ball']))
+
+
 def _slice_batch():
     """One small flagship batch on the card: parts of SLICE_COUNTS shapes,
     random unit quaternions and translations."""
@@ -963,16 +1006,23 @@ def _slice_rot_type(rot_type, batch):
 
 def _check_eval_logs(tag, model, cfg, batch):
     """The eval logs of the batch with the full metric set, card against
-    CPU: the Euler metrics within 1e-3 degrees, the rest within 1e-5."""
+    CPU: the Euler metrics within 1e-3 degrees, the rest within 1e-5.  The
+    card takes the CPU's kNN graphs, FPS samples and ball sets."""
     from multi_part_assembly_tpu_torch.train.core import mon_loss
     logs = {}
     model.eval()
     with torch.no_grad():
-        for device in ('cpu', 'cuda'):
-            m = model.to(device)
-            _, lg = mon_loss(m, {k: v.to(device) for k, v in batch.items()},
+        with _indices(record=True) as (graph, sampling):
+            m = model.to('cpu')
+            _, lg = mon_loss(m, {k: v.cpu() for k, v in batch.items()},
                              cfg=cfg, training=False, reduce=False)
-            logs[device] = {k: v.cpu().double() for k, v in lg.items()}
+            logs['cpu'] = {k: v.cpu().double() for k, v in lg.items()}
+            given = _given(graph, sampling)
+        with _indices(**given):
+            m = model.to('cuda')
+            _, lg = mon_loss(m, {k: v.cuda() for k, v in batch.items()},
+                             cfg=cfg, training=False, reduce=False)
+            logs['cuda'] = {k: v.cpu().double() for k, v in lg.items()}
     worst = {}
     for k, cpu in logs['cpu'].items():
         gpu = logs['cuda'][k]
@@ -1557,12 +1607,16 @@ def phase_family_slices():
         _slice_family(family, batch)
 
 
-def _profile_steps(trainer, steps=2, tries=2):
-    """(device kernels a step, device busy ms a step, wall ms a step) over
-    `steps` train steps after a warm one, from torch.profiler: one run,
-    enough to see how far the host keeps the card idle.  A run in which
-    the profiler records no device event is tried again; after `tries`
-    such runs, None (not measured)."""
+def _profile_steps(trainer, steps=2, tries=2, ranges=()):
+    """(device kernels a step, device busy ms a step, wall ms a step,
+    {range: (device ms, host ms) a step}) over `steps` train steps after a
+    warm one, from torch.profiler: one run, enough to see how far the host
+    keeps the card idle.  A range's device time is that of the kernels
+    inside the device-side spans of the record_function ranges of that
+    name (None when the profiler records no such span), its host time
+    that of the host-side ranges.  A run in which the profiler records no
+    device event is tried again; after `tries` such runs, None (not
+    measured)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for attempt in range(tries):
@@ -1577,35 +1631,75 @@ def _profile_steps(trainer, steps=2, tries=2):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         batches.close()
-        kernels = [ev for ev in prof.events()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = _device_kernels(prof)
         if kernels:
             busy_us = sum(ev.time_range.elapsed_us() for ev in kernels)
+            times = {name: _range_ms(prof, kernels, name, steps)
+                     for name in ranges}
             return len(kernels) / steps, busy_us / 1e3 / steps, \
-                1e3 * wall / steps
+                1e3 * wall / steps, times
     return None
+
+
+def _range_ms(prof, kernels, name, steps):
+    """(device ms, host ms) a step of the record_function ranges `name`."""
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    host = sum(ev.cpu_time_total for ev in prof.events()
+               if ev.name == name and ev.device_type == cpu)
+    spans = [(ev.time_range.start, ev.time_range.end)
+             for ev in prof.events() if ev.name == name and
+             ev.device_type == cuda and getattr(ev, 'is_user_annotation',
+                                                False)]
+    dev = None
+    if spans:
+        dev = sum(k.time_range.elapsed_us() for k in kernels
+                  if any(s <= k.time_range.start and k.time_range.end <= e
+                         for s, e in spans)) / 1e3 / steps
+    return dev, host / 1e3 / steps
+
+
+def _device_kernels(prof):
+    """The profiler's device events, less the device-side mirrors of
+    record_function ranges (user annotations), which overlap the kernels
+    they span."""
+    return [ev for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA and
+            not getattr(ev, 'is_user_annotation', False)]
 
 
 def _profile_line(profile):
     if profile is None:
         return 'the profiler recorded no device event: not measured'
-    kernels, busy, step_ms = profile
+    kernels, busy, step_ms, times = profile
     return (f'{kernels:.0f} device kernels a step, {busy:.2f} ms of device '
             f'time in {step_ms:.2f} ms a step (device idle '
-            f'{100 * (1 - busy / step_ms):.1f}%)')
+            f'{100 * (1 - busy / step_ms):.1f}%)' + ''.join(
+                f'; {k} ' + ('device not measured' if d is None else
+                             f'{d:.3f} ms device') + f', {h:.3f} ms host'
+                for k, (d, h) in times.items()))
 
 
 def _family_run(family, data_dir, tmp):
     """scripts/train_torch.py's main on the family's everyday config at its
-    published width, on the dense slot wire: one epoch (4 steps of batch
-    32) and a validation with its checkpoint.  The launch counters are
-    reset just before it: B1-B4 must launch T times a train step
-    (identity: B1 and B3 once, B2 and B4 never, since nothing needs a
-    gradient), the dense sampler once a batch, and B7, B8 and the chunked
-    sampler never.  Then one torch.profiler run of two more steps."""
+    published width, on the dense slot wire (see _epoch_run)."""
+    path, T = FAMILIES[family]
+    return _epoch_run(f'family[{family}]', os.path.join(ROOT, path), T,
+                      [], data_dir, os.path.join(tmp, f'family_{family}'),
+                      identity=family == 'identity')
+
+
+def _epoch_run(tag, path, T, opts, data_dir, run_dir, batch=B, ranges=(),
+               identity=False):
+    """scripts/train_torch.py's main on a config, on the dense slot wire:
+    one epoch (4 steps of batch 32, 8 of 16) and a validation with its
+    checkpoint.
+    The launch counters are reset just before it: B1-B4 must launch T
+    times a train step (identity: B1 and B3 once, B2 and B4 never, since
+    nothing needs a gradient), the dense sampler once a batch, and B7, B8
+    and the chunked sampler never.  Then one torch.profiler run of two
+    more steps (with the device time of `ranges`)."""
     import train_torch
     from multi_part_assembly_tpu_torch.train.trainer import Trainer
-    path, T = FAMILIES[family]
     launches = {}
     validate = Trainer.validate
 
@@ -1616,7 +1710,6 @@ def _family_run(family, data_dir, tmp):
                            for k, v in _launches().items()}
         return metrics
 
-    run_dir = os.path.join(tmp, f'family_{family}')
     Trainer.validate = counted_validate
     try:
         with _Timed('save_checkpoint', '_export_val_vis') as timed:
@@ -1624,32 +1717,33 @@ def _family_run(family, data_dir, tmp):
             _reset_launches()
             t0 = time.perf_counter()
             trainer = train_torch.main([
-                '--cfg_file', os.path.join(ROOT, path), '--ckp_dir', run_dir,
+                '--cfg_file', path, '--ckp_dir', run_dir,
                 '--opts', 'data.data_dir', data_dir, 'exp.num_epochs', '1',
-                'exp.val_every', '1', *DENSE])
+                'exp.val_every', '1', 'exp.batch_size', str(batch), *DENSE,
+                *opts])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             totals = _launches()
     finally:
         Trainer.validate = validate
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    tag = f'family[{family}]'
     with open(os.path.join(run_dir, 'metrics.jsonl')) as f:
         train = [r for r in map(json.loads, f) if 'train/loss' in r]
     losses = [r['train/loss'] for r in train]
     steps = trainer.step_seconds
-    if len(steps) != 4 or not all(map(math.isfinite, losses)):
-        raise AssertionError(f'{tag}: expected 4 finite train steps, got '
-                             f'{losses}')
+    n_steps = 4 * B // batch  # the set's 128 train shapes
+    if len(steps) != n_steps or not all(map(math.isfinite, losses)):
+        raise AssertionError(f'{tag}: expected {n_steps} finite train '
+                             f'steps, got {losses}')
     ms = 1000.0 * sum(steps[1:]) / len(steps[1:])
     waits = [1000.0 * r['train/data_time'] for r in train]
     wait_ms = sum(waits[1:]) / len(waits[1:])
     print(f'{tag}: {trainer.tables["train"].layout} tables; {len(steps)} '
-          f'train steps of batch {B}, first {1000 * steps[0]:.1f} ms, then '
-          f'{ms:.2f} ms/step = {B / (ms / 1000):.1f} samples/s; data wait '
-          f'{wait_ms:.3f} ms/step; peak memory {peak_gib:.2f} GiB; wall '
-          f'{wall:.1f} s; train losses {["%.5f" % v for v in losses]}',
-          flush=True)
+          f'train steps of batch {batch}, first {1000 * steps[0]:.1f} ms, '
+          f'then {ms:.2f} ms/step = {batch / (ms / 1000):.1f} samples/s; '
+          f'data wait {wait_ms:.3f} ms/step; peak memory {peak_gib:.2f} '
+          f'GiB; wall {wall:.1f} s; train losses '
+          f'{["%.5f" % v for v in losses]}', flush=True)
     _check_metrics(tag, trainer.metrics)
     saved = trainer.ckpt_mgr.all_steps()
     print(f'{tag}: checkpoint save {timed.ms("save_checkpoint")} ms, val '
@@ -1659,7 +1753,7 @@ def _family_run(family, data_dir, tmp):
         raise AssertionError(f'{tag}: expected one checkpoint on the dense '
                              f'wire, got {saved}')
     n = len(steps)
-    grad = 0 if family == 'identity' else T * n
+    grad = 0 if identity else T * n
     expected = {'nn_parts': T * n, 'nn_diag': T * n, 'bwd_parts': grad,
                 'bwd_diag': grad, 'sample_dense': n, 'sample_chunked': 0,
                 'nn_off': 0, 'nn_dir': 0, 'lap': 0}
@@ -1674,7 +1768,7 @@ def _family_run(family, data_dir, tmp):
             val[k] for k in ('bwd_parts', 'bwd_diag', 'nn_off', 'nn_dir',
                              'sample_chunked', 'lap')):
         raise AssertionError(f'{tag}: validation launches {val}')
-    profile = _profile_steps(trainer)
+    profile = _profile_steps(trainer, ranges=ranges)
     print(f'{tag}: torch.profiler over 2 steps: {_profile_line(profile)}',
           flush=True)
     trainer.close()
@@ -1886,12 +1980,30 @@ def _noise_and_idx(b, S, seed):
     return noise, idx
 
 
+def _chained_contacts(valids, seed=12):
+    """Flag-first contact matrices [B, P, P, 4], as
+    tests/test_torch_semantic.py builds them: each valid part touches the
+    next at a point of [-0.1, 0.1]^3, its partner's copy 0.001 away (the
+    synthetic set's contact files put the flag last, which the metric, as
+    the JAX package's, reads as no contact)."""
+    rng = np.random.RandomState(seed)
+    b, p = valids.shape
+    contacts = np.zeros((b, p, p, 4), np.float32)
+    for i, n in enumerate(valids.sum(1).long().tolist()):
+        for j in range(n - 1):
+            pt = rng.uniform(-0.1, 0.1, 3)
+            contacts[i, j, j + 1] = [1, *pt]
+            contacts[i, j + 1, j] = [1, *(pt + 0.001)]
+    return torch.from_numpy(contacts)
+
+
 def phase_semantic_slice(data_dir):
     """One MoN step (S = 5) of the partnet_chair PN-Transformer at full
     width in f32, card against CPU, the same weights, head noise and match
     subsamples: loss within 1e-4, gradients within 1e-3 relative L2; then
     the eval logs of the batch (losses, part_acc, connectivity_acc) within
-    1e-5."""
+    1e-5, on flag-first contact matrices (`_chained_contacts`), with which
+    connectivity_acc must be above 0."""
     from multi_part_assembly_tpu_torch.models import build_model
     from multi_part_assembly_tpu_torch.train.core import mon_loss
     from multi_part_assembly_tpu_torch.utils import load_cfg_file
@@ -1899,6 +2011,7 @@ def phase_semantic_slice(data_dir):
     cfg.exp.bf16 = False
     S = cfg.loss.sample_iter
     batch = _partnet_batch(data_dir, range(2))
+    batch['contact_points'] = _chained_contacts(batch['part_valids'])
     torch.manual_seed(0)
     model = build_model(cfg, 'cpu').train()
     for m in model.modules():
@@ -1939,8 +2052,11 @@ def phase_semantic_slice(data_dir):
     print('semantic slice: eval logs card vs CPU, largest difference '
           '(tolerance 1e-5): ' + ', '.join(
               f'{k} {d:.2e}' for k, d in sorted(worst.items())) +
-          f'; part_acc {logs["cuda"]["part_acc"].tolist()}', flush=True)
+          f'; part_acc {logs["cuda"]["part_acc"].tolist()}, '
+          f'connectivity_acc {logs["cuda"]["connectivity_acc"].tolist()} '
+          '(above 0 required)', flush=True)
     if any(k not in logs['cuda'] for k in SEM_KEYS) or \
+            not bool((logs['cuda']['connectivity_acc'] > 0).all()) or \
             any(d > 1e-5 for d in worst.values()) or \
             any(k.startswith(('trans_m', 'trans_r', 'rot_m', 'rot_r'))
                 for k in logs['cuda']):
@@ -1963,8 +2079,7 @@ def _profile_semantic(trainer, steps=2):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     batches.close()
-    kernels = [ev for ev in prof.events()
-               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = _device_kernels(prof)
     if not kernels:
         return 'the profiler recorded no device event: not measured'
     busy = sum(ev.time_range.elapsed_us() for ev in kernels) / 1e3 / steps
@@ -2138,6 +2253,137 @@ def phase_semantic(data_dir, tmp):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# the DGCNN and PointNet++ encoders on the flagship: card vs CPU, training
+# ---------------------------------------------------------------------------
+
+ENCODER_ARCHS = ('dgcnn', 'pointnet2_ssg', 'pointnet2_msg')
+# profiler ranges (record_function) of the encoders' plain-PyTorch ops
+ENCODER_RANGES = ('knn', 'neighborhood_reduce', 'neighborhood_reduce_backward',
+                  'furthest_point_sample', 'ball_query')
+
+
+def _differ(a, b, sets):
+    """How many rows of two index tensors differ ([..., k]: as sets when
+    `sets`, else elementwise), and of how many."""
+    if sets:
+        a, b = a.sort(-1).values, b.sort(-1).values
+        return int((a != b).any(-1).sum()), a[..., 0].numel()
+    return int((a != b).sum()), a.numel()
+
+
+def _slice_encoder(arch, batch):
+    """One MoN step of the flagship config with the encoder at full width
+    in f32, card against CPU, the same weights: the card takes the CPU's
+    kNN graphs, FPS samples and ball sets, where an ulp can flip a
+    neighbour at the k-th distance or a point at the ball's radius (how
+    many differ when the card makes its own is printed).  Loss within
+    1e-4; gradients within 1e-3 relative L2 plus twice the card gradient's
+    own movement under relative 1e-7 and 1e-6 nudges of the clouds (the
+    same indices); two card runs bitwise equal for DGCNN, whose backward
+    adds by sorted index (printed for PointNet++); then the eval logs."""
+    from multi_part_assembly_tpu_torch.models import build_model
+    from multi_part_assembly_tpu_torch.utils import load_cfg_file
+    cfg = load_cfg_file(FLAGSHIP_CFG)
+    cfg.exp.bf16 = False
+    cfg.model.encoder = arch
+    torch.manual_seed(0)
+    model = build_model(cfg, 'cpu').train()
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    tag = f'encoder slice[{arch}]'
+    with _indices(record=True) as (graph, sampling):
+        l_cpu, g_cpu = _step(model, batch, cfg, 'cpu')
+        given = _given(graph, sampling)
+    runs = []
+    for _ in range(2):
+        with _indices(**given):
+            runs.append(_step(model, batch, cfg, 'cuda'))
+    (l_gpu, g_gpu), (_, g_again) = runs
+    bitwise = torch.equal(g_gpu, g_again)
+    with _indices(record=True) as (graph, sampling):
+        _step(model, batch, cfg, 'cuda')
+        own = _given(graph, sampling)
+    counts = []
+    valid = batch['part_valids'].reshape(-1).cpu() > 0
+    for key, sets in (('graph', True), ('fps', False), ('ball', True)):
+        pairs = [_differ(a[valid], b[valid], sets)
+                 for a, b in zip(own[key], given[key])]
+        counts.append(f'{key} {sum(d for d, _ in pairs)} of '
+                      f'{sum(n for _, n in pairs)}')
+    jitter = 0.0
+    for eps in (1e-7, 1e-6):
+        nudged = dict(batch)
+        d = torch.randn(batch['part_pcs'].shape,
+                        generator=torch.Generator().manual_seed(9))
+        nudged['part_pcs'] = batch['part_pcs'] * (1 + eps * d.cuda())
+        with _indices(**given):
+            g_n = _step(model, nudged, cfg, 'cuda')[1]
+        jitter = max(jitter, float((g_n - g_gpu).norm() / g_gpu.norm()))
+    rel_loss = abs(l_gpu - l_cpu) / abs(l_cpu)
+    rel_grad = float((g_gpu - g_cpu).norm() / g_cpu.norm())
+    tol = 1e-3 + 2 * jitter
+    print(f'{tag}: mon_loss card {l_gpu:.7f} vs CPU {l_cpu:.7f} (rel '
+          f'{rel_loss:.2e}, tolerance 1e-4); gradient rel. L2 diff '
+          f'{rel_grad:.2e} (tolerance 1e-3 + 2 x {jitter:.2e}, the card '
+          f"gradient's movement under nudges of 1e-7 and 1e-6); two card "
+          f'runs bitwise equal: {bitwise}; where the card makes its own '
+          f'indices, rows of the valid parts that differ from the CPU\'s: '
+          f'{", ".join(counts)}',
+          flush=True)
+    if not (math.isfinite(l_gpu) and rel_loss <= 1e-4 and rel_grad <= tol
+            and (bitwise or arch != 'dgcnn')):
+        raise AssertionError(f'{tag}: the card disagrees with the CPU')
+    _check_eval_logs(arch, model, cfg, batch)
+
+
+def _encoder_run(arch, data_dir, tmp, batch):
+    """_epoch_run of the flagship config with the encoder at `batch`, with
+    the device time of its ops' profiler ranges."""
+    return _epoch_run(
+        f'encoder[{arch}]', FLAGSHIP_CFG, 1,
+        ['model.encoder', arch, 'exp.val_sample_vis', '0'], data_dir,
+        os.path.join(tmp, f'encoder_{arch}_{batch}'), batch=batch,
+        ranges=ENCODER_RANGES)
+
+
+def phase_encoders(data_dir, tmp):
+    """The flagship with DGCNN, PointNet++ SSG and MSG: the card-vs-CPU
+    step of each on the first shape of the slice batch (12 of 20 parts
+    valid), then one epoch of each at batch 32 on the dense slot wire
+    (_epoch_run: B1-B4 once a step), MSG at batch 16 if 32 does not fit
+    the card.  Returns the launch counts of the training runs."""
+    batch = {k: v[:1] for k, v in _slice_batch().items()}
+    for arch in ENCODER_ARCHS:
+        _slice_encoder(arch, batch)
+    totals, rows = {}, {}
+    for arch in ENCODER_ARCHS:
+        oom, size = None, B
+        try:
+            launches, row = _encoder_run(arch, data_dir, tmp, B)
+        except torch.cuda.OutOfMemoryError as e:
+            if arch != 'pointnet2_msg':
+                raise
+            oom = str(e).splitlines()[0]
+        if oom is not None:  # the failed run's tensors are garbage now
+            import gc
+            gc.collect()
+            torch.cuda.empty_cache()
+            size = B // 2
+            print(f'encoder[{arch}]: batch {B} does not fit the card '
+                  f'({oom}); batch {size} instead', flush=True)
+            launches, row = _encoder_run(arch, data_dir, tmp, size)
+        rows[arch] = (size, ) + row
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+    print('encoders: ' + '; '.join(
+        f'{a} batch {b}: {ms:.2f} ms/step, wait {w:.3f} ms, {mem:.2f} GiB, '
+        f'{_profile_line(prof)}'
+        for a, (b, ms, w, mem, prof) in rows.items()), flush=True)
+    return totals
+
+
 def _timed(phase, *args):
     """phase(*args), its wall time printed."""
     t0 = time.perf_counter()
@@ -2172,7 +2418,8 @@ def main():
         launches = _timed(phase_main, data_dir, tmp)
         for phase in (_timed(phase_resume, data_dir, tmp),
                       _timed(phase_families, data_dir, tmp),
-                      _timed(phase_semantic, partnet_dir, tmp)):
+                      _timed(phase_semantic, partnet_dir, tmp),
+                      _timed(phase_encoders, data_dir, tmp)):
             for k, v in phase.items():
                 launches[k] += v
     # B7 runs on no training path: its count is the repulsion runs'

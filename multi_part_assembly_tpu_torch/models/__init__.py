@@ -1,6 +1,7 @@
 """Model factory (port of multi_part_assembly_tpu/models/__init__.py:28-77):
-the seven families with the PointNet encoder, on geometric or semantic
-data."""
+the seven families, each with any of the four encoders (`cfg.model.encoder`
+pointnet, dgcnn, pointnet2_ssg or pointnet2_msg; Identity has none), on
+geometric or semantic data."""
 
 import torch
 
@@ -44,9 +45,6 @@ def _build(cfg):
     name = cfg.model.name
     if name == 'identity':
         return IdentityModel(rot_type=cfg.model.rot_type)
-    if cfg.model.encoder != 'pointnet':
-        raise NotImplementedError(
-            f'encoder {cfg.model.encoder} is not ported yet')
     common = dict(
         rot_type=cfg.model.rot_type, pc_feat_dim=cfg.model.pc_feat_dim,
         encoder_arch=cfg.model.encoder, noise_dim=cfg.loss.noise_dim,

@@ -3,10 +3,20 @@
 `jax_to_state_dict(variables, model)` turns the JAX model's {'params',
 'batch_stats'} tree, with numpy (or array-like) leaves, into the port's
 `state_dict()` of the same family (`model` is the config's model name,
-default 'pn_transformer').  It is the inverse of the torch -> flax maps in
-tests/test_golden_forward.py:50-120 and :178-232:
+default 'pn_transformer', or 'encoder' for an encoder alone).  It is the
+inverse of the torch -> flax maps in tests/test_golden_forward.py:50-120,
+:178-232 and :412-465:
   - Dense kernels [in, out] become weight [out, in] ([out, in, 1] for the
     PointNet Conv1d layers);
+  - the encoder follows its arch, read from the tree's shape (`_encoder`):
+    PointNet's `conv{i}` -> `conv{i}.weight` [out, in, 1]; DGCNN's
+    `conv{1-4}` -> `conv{i}.0.weight` [d, 2C, 1, 1], `conv5` ->
+    `conv5.0.weight` [feat, 512, 1], each `bn{i}` -> both `bn{i}.*` and
+    `conv{i}.1.*` (the reference registers one module under both names),
+    `out_fc` -> `out_fc`; PointNet++'s `sa{s}/mlp{m}/mlp{j}` ->
+    `SA_modules.{s-1}.mlps.{m}.{3j}.weight` [out, in, 1, 1] and
+    `sa{s}/mlp{m}/bn{j}` -> `SA_modules.{s-1}.mlps.{m}.{3j+1}.*`, for
+    every family with an encoder (Global's two included);
   - q/k/v kernels [C, H, hd] pack into in_proj_weight [3C, C];
   - the out kernel [H, hd, C] becomes out_proj.weight [C, C];
   - BN scale/bias/mean/var become weight/bias/running_mean/running_var,
@@ -53,12 +63,51 @@ def _attention(sd, key, p):
     sd[f'{key}.out_proj.bias'] = _t(p['out']['bias'])
 
 
+def _conv(sd, key, p, ndim):
+    """Dense kernel [in, out] -> Conv weight [out, in, 1 ...] of `ndim`
+    dimensions."""
+    w = _t(p['kernel']).T
+    sd[f'{key}.weight'] = w.reshape(w.shape + (1, ) * (ndim - 2)).contiguous()
+
+
+def _bn(sd, key, p, stats):
+    _norm(sd, key, p)
+    _stats(sd, key, stats)
+
+
 def _pointnet(sd, key, p, stats):
     for i in range(1, 6):
-        sd[f'{key}.conv{i}.weight'] = \
-            _t(p[f'conv{i}']['kernel']).T[:, :, None].contiguous()
-        _norm(sd, f'{key}.bn{i}', p[f'bn{i}'])
-        _stats(sd, f'{key}.bn{i}', stats[f'bn{i}'])
+        _conv(sd, f'{key}.conv{i}', p[f'conv{i}'], 3)
+        _bn(sd, f'{key}.bn{i}', p[f'bn{i}'], stats[f'bn{i}'])
+
+
+def _dgcnn(sd, key, p, stats):
+    for i in range(1, 6):
+        _conv(sd, f'{key}.conv{i}.0', p[f'conv{i}'], 4 if i < 5 else 3)
+        for name in (f'bn{i}', f'conv{i}.1'):
+            _bn(sd, f'{key}.{name}', p[f'bn{i}'], stats[f'bn{i}'])
+    _linear(sd, f'{key}.out_fc', p['out_fc'])
+
+
+def _pointnet2(sd, key, p, stats):
+    for s in range(sum(1 for k in p if k.startswith('sa'))):
+        sa, sa_stats = p[f'sa{s + 1}'], stats[f'sa{s + 1}']
+        for m in range(len(sa)):
+            mlp, mlp_stats = sa[f'mlp{m}'], sa_stats[f'mlp{m}']
+            mk = f'{key}.SA_modules.{s}.mlps.{m}'
+            for j in range(sum(1 for k in mlp if k.startswith('mlp'))):
+                _conv(sd, f'{mk}.{3 * j}', mlp[f'mlp{j}'], 4)
+                _bn(sd, f'{mk}.{3 * j + 1}', mlp[f'bn{j}'],
+                    mlp_stats[f'bn{j}'])
+
+
+def _encoder(sd, key, p, stats):
+    """Any of the four encoders, told apart by their trees."""
+    if 'sa1' in p:
+        return _pointnet2(sd, key, p, stats)
+    if 'out_fc' in p:
+        return _dgcnn(sd, key, p, stats)
+    return _pointnet(sd, key, p, stats)
 
 
 def _stats(sd, key, s):
@@ -103,18 +152,17 @@ def _gru(sd, key, p):
 def _mlp34(sd, key, p, stats):
     for i in range(1, 4):
         _linear(sd, f'{key}.conv{i}', p[f'conv{i}'])
-        _norm(sd, f'{key}.bn{i}', p[f'bn{i}'])
-        _stats(sd, f'{key}.bn{i}', stats[f'bn{i}'])
+        _bn(sd, f'{key}.bn{i}', p[f'bn{i}'], stats[f'bn{i}'])
 
 
 def _pn_transformer(params, stats, sd):
-    _pointnet(sd, 'enc', params['encoder'], stats['encoder'])
+    _encoder(sd, 'enc', params['encoder'], stats['encoder'])
     _transformer(sd, 'corr', params['corr_module'])
     _head(sd, 'head', params['pose_predictor'])
 
 
 def _refine(params, stats, sd):
-    _pointnet(sd, 'enc', params['encoder'], stats['encoder'])
+    _encoder(sd, 'enc', params['encoder'], stats['encoder'])
     steps = sum(1 for k in params if k.startswith('corr') and k[4:].isdigit())
     for i in range(steps):
         _transformer(sd, f'corr.{i}', params[f'corr{i}'])
@@ -125,9 +173,9 @@ def _refine(params, stats, sd):
 
 
 def _global(params, stats, sd):
-    _pointnet(sd, 'enc', params['encoder'], stats['encoder'])
-    _pointnet(sd, 'global_enc', params['global_encoder'],
-              stats['global_encoder'])
+    _encoder(sd, 'enc', params['encoder'], stats['encoder'])
+    _encoder(sd, 'global_enc', params['global_encoder'],
+             stats['global_encoder'])
     _head(sd, 'head', params['pose_predictor'])
 
 
@@ -141,13 +189,13 @@ def _seq2seq(sd, key, p):
 
 
 def _lstm(params, stats, sd):
-    _pointnet(sd, 'enc', params['encoder'], stats['encoder'])
+    _encoder(sd, 'enc', params['encoder'], stats['encoder'])
     _seq2seq(sd, 'seq2seq', params['seq2seq'])
     _head(sd, 'head', params['pose_predictor'])
 
 
 def _dgl(params, stats, sd):
-    _pointnet(sd, 'enc', params['encoder'], stats['encoder'])
+    _encoder(sd, 'enc', params['encoder'], stats['encoder'])
     iters = sum(1 for k in params if k.startswith('edge_mlp'))
     for i in range(iters):
         _mlp34(sd, f'edge_mlps.{i}', params[f'edge_mlp{i}'],
@@ -181,8 +229,12 @@ _FAMILIES = {
 
 
 def jax_to_state_dict(variables, model='pn_transformer'):
-    """JAX variables of the `model` family -> the port's state_dict."""
+    """JAX variables of the `model` family -> the port's state_dict;
+    `model='encoder'`: an encoder's own variables -> its module's."""
     sd = {}
-    _FAMILIES[model](variables['params'], variables.get('batch_stats', {}),
-                     sd)
+    params, stats = variables['params'], variables.get('batch_stats', {})
+    if model == 'encoder':
+        _encoder(sd, 'enc', params, stats)
+        return {k[len('enc.'):]: v for k, v in sd.items()}
+    _FAMILIES[model](params, stats, sd)
     return sd

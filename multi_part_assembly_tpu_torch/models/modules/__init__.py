@@ -1,4 +1,5 @@
-from .encoders import PointNet, build_encoder
+from .encoders import (DGCNN, FeaturePropagation, PointNet, PointNet2MSG,
+                       PointNet2SSG, build_encoder)
 from .norm import MaskedBatchNorm
 from .regressor import PoseRegressor, StochasticPoseRegressor
 from .transformer import TransformerEncoder

@@ -19,7 +19,13 @@ and against the CPU (the plain versions take a correctly rounded square
 root, as the kernels do).  Losses on the card within 1e-5 relative of the
 CPU's.  The LAP kernel's assignments equal the plain version's exactly, on
 the card and on the CPU (the same arithmetic in the same order, ties to
-the first minimum).
+the first minimum).  DGCNN's neighbourhood reduce: max and min exactly,
+sums within 1e-6 relative to the largest magnitude, its backward bitwise
+from one launch to the next (it adds by sorted index); each encoder in
+train mode, the card given the CPU's kNN graphs, FPS samples and ball
+sets: outputs atol 1e-4, rtol 1e-4, gradients 1e-3 relative L2 plus twice
+the card gradient's own movement under relative 1e-7 and 1e-6 nudges of
+the clouds.
 """
 
 import os
@@ -526,3 +532,78 @@ def test_lap_kernel_refuses_more_than_32_columns(cuda):
     out = TM.solve_lap(torch.zeros((0, 4, 4), device=cuda))
     assert out.shape == (0, 4)
 
+
+@pytest.mark.cuda
+def test_neighborhood_reduce_card_matches_cpu_and_is_deterministic(cuda):
+    from multi_part_assembly_tpu_torch.ops import knn as TK
+    rng = np.random.RandomState(0)
+    u = rng.randn(4, 500, 64).astype(np.float32)
+    # many rows share a few neighbours: heavy collisions in the backward
+    idx = rng.randint(0, 20, (4, 500, 20))
+    cot = [torch.tensor(rng.randn(4, 500, 64).astype(np.float32))
+           for _ in range(4)]
+
+    def run(device):
+        ut = torch.tensor(u, device=device, requires_grad=True)
+        out = TK.neighborhood_reduce(ut, torch.tensor(idx, device=device))
+        sum((o * c.to(device)).sum() for o, c in zip(out, cot)).backward()
+        return [o.detach().cpu() for o in out], ut.grad.cpu()
+
+    (out_c, g_c), (out_g, g_g), (_, g_again) = run('cpu'), run(cuda), \
+        run(cuda)
+    assert torch.equal(out_g[0], out_c[0]) and torch.equal(out_g[1],
+                                                           out_c[1])
+    for a, b in zip(out_g[2:] + [g_g], out_c[2:] + [g_c]):
+        assert float((a - b).abs().max()) <= 1e-6 * max(
+            1.0, float(b.abs().max()))
+    assert torch.equal(g_g, g_again)
+
+
+def _encoder_step(net, x, mask, cot, device, given=None):
+    """Train-mode forward and backward of sum(out * cot) on `device`, the
+    port's indices given (or recorded): (out, flat gradient, recording)."""
+    from multi_part_assembly_tpu_torch.ops import knn as TK
+    from multi_part_assembly_tpu_torch.ops import sampling as TS
+    given = given or {}
+    TK.set_knn_override(given.get('graph'), record=True)
+    TS.set_sampling_override(given.get('fps'), given.get('ball'),
+                             record=True)
+    try:
+        net = net.to(device).train()
+        net.zero_grad(set_to_none=True)
+        out = net(x.to(device), mask.to(device))
+        (out * cot.to(device)).sum().backward()
+        rec = dict(graph=list(TK.knn_calls()),
+                   fps=list(TS.sampling_calls()['fps']),
+                   ball=list(TS.sampling_calls()['ball']))
+    finally:
+        TK.set_knn_override()
+        TS.set_sampling_override()
+    grad = torch.cat([p.grad.reshape(-1).cpu() for p in net.parameters()])
+    return out.detach().cpu(), grad, rec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('arch', ['dgcnn', 'pointnet2_ssg',
+                                  'pointnet2_msg'])
+def test_encoder_card_matches_cpu(cuda, arch):
+    from multi_part_assembly_tpu_torch.models.modules.encoders import \
+        build_encoder
+    torch.manual_seed(0)
+    net = build_encoder(arch, 32)
+    rng = np.random.RandomState(1)
+    mask = torch.tensor([1.0, 0.0, 1.0])
+    x = torch.tensor((0.4 * rng.randn(3, 600, 3)).astype(np.float32)) * \
+        mask[:, None, None]
+    cot = torch.tensor(rng.randn(3, 32).astype(np.float32))
+    out_c, g_c, given = _encoder_step(net, x, mask, cot, 'cpu')
+    out_g, g_g, _ = _encoder_step(net, x, mask, cot, cuda, given)
+    jitter = 0.0
+    d = torch.tensor(np.random.RandomState(9).randn(*x.shape).astype(
+        np.float32))
+    for eps in (1e-7, 1e-6):
+        g_n = _encoder_step(net, x * (1 + eps * d), mask, cot, cuda,
+                            given)[1]
+        jitter = max(jitter, float((g_n - g_g).norm() / g_g.norm()))
+    torch.testing.assert_close(out_g, out_c, atol=1e-4, rtol=1e-4)
+    assert float((g_g - g_c).norm() / g_c.norm()) <= 1e-3 + 2 * jitter

@@ -78,20 +78,27 @@ def test_build_model_at_published_width(family):
 
 
 def test_build_model_raises_for_semantic_data_and_other_encoders():
-    """Encoders other than PointNet still raise, on geometric and on
-    semantic configs; the semantic (partnet_chair) config itself builds,
-    its DGL merging equivalent parts (tests/test_torch_semantic.py holds
-    the semantic builds against JAX)."""
+    """Every encoder of the North star builds, on geometric and on
+    semantic configs, and an unknown one raises; the semantic
+    (partnet_chair) config builds, its DGL merging equivalent parts
+    (tests/test_torch_semantic.py holds the semantic builds against JAX,
+    tests/test_torch_encoder_families.py the encoders)."""
     cfg = _everyday('dgl')
     cfg.model.encoder = 'dgcnn'
-    with pytest.raises(NotImplementedError, match='dgcnn'):
+    assert 'enc.conv1.0.weight' in build_model(cfg, 'cpu').state_dict()
+    cfg.model.encoder = 'nosuch'
+    with pytest.raises(NotImplementedError, match='nosuch'):
         build_model(cfg, 'cpu')
     cfg = TCFG.load_cfg_file(os.path.join(
         U.ROOT, 'configs/dgl/dgl-32x1-cosine_300e-partnet_chair.py'))
     net = build_model(cfg, 'cpu')
     assert net.semantic and net.merge_node
-    cfg.model.encoder = 'dgcnn'
-    with pytest.raises(NotImplementedError, match='dgcnn'):
+    cfg.model.encoder = 'pointnet2_ssg'
+    net = build_model(cfg, 'cpu')
+    assert net.semantic and 'enc.SA_modules.2.mlps.0.6.weight' in \
+        net.state_dict()
+    cfg.model.encoder = 'nosuch'
+    with pytest.raises(NotImplementedError, match='nosuch'):
         build_model(cfg, 'cpu')
 
 
