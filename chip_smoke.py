@@ -124,7 +124,22 @@ Phases, each printing its own line(s); any failure exits non-zero:
      T = 1; step time, data wait, peak memory, and one torch.profiler run
      of two steps: kernels a step, device idle, and the device and host
      time of the ranges knn, neighborhood_reduce (and _backward),
-     furthest_point_sample and ball_query.
+     furthest_point_sample and ball_query;
+ 10. ddp: data parallelism on two gloo ranks sharing the card (NCCL
+     refuses two ranks on one device), each a subprocess of this script
+     (`--ddp-rank`) with torchrun's variables and a timeout.  One
+     flagship step at published width in f32, dropout off, split 2 x 16
+     across the ranks against this process's step at 32 on the same
+     weights and batch (loss 1e-4 relative, gradients 1e-3 relative L2;
+     with sync batch norm against the whole batch, per-replica against
+     JAX's per-group rule), both ranks' weights bitwise equal after Adam,
+     B1-B4 once a rank; then scripts/train_torch.py's main on both ranks:
+     the flagship at 16 a rank, one epoch on the dense slot wire, gated
+     as phase 7, a validation whose metrics both ranks report
+     identically, one checkpoint written by rank 0, a fresh Trainer on
+     each rank resuming from it bitwise; printed, labelled "gloo, 2 ranks
+     sharing one card": step time, data wait, the device and host time
+     of the profiler range grad_all_reduce, and each rank's peak memory.
 The smoke prints its total wall time; the line before the last is a JSON
 summary of the kernels; the last line is {"ok": true, "device": {...}}.
 """
@@ -950,12 +965,13 @@ def _given(graph, sampling):
                 ball=list(sampling['ball']))
 
 
-def _slice_batch():
-    """One small flagship batch on the card: parts of SLICE_COUNTS shapes,
-    random unit quaternions and translations."""
-    x, _, valids = _clouds(SLICE_COUNTS, 3)
-    b = len(SLICE_COUNTS)
-    g = torch.Generator(device='cuda').manual_seed(4)
+def _slice_batch(counts=SLICE_COUNTS, seed=3):
+    """One flagship batch on the card: parts of shapes of `counts` parts
+    (default: the small slice batch), random unit quaternions and
+    translations."""
+    x, _, valids = _clouds(counts, seed)
+    b = len(counts)
+    g = torch.Generator(device='cuda').manual_seed(seed + 1)
     return {
         'part_pcs': x, 'part_valids': valids,
         'part_quat': torch.nn.functional.normalize(
@@ -2384,6 +2400,335 @@ def phase_encoders(data_dir, tmp):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# data parallelism: two gloo ranks sharing the card (parallel/dist.py)
+# ---------------------------------------------------------------------------
+
+DDP_WORLD = 2
+DDP_LABEL = 'gloo, 2 ranks sharing one card'
+DDP_TIMEOUT = 300  # seconds the ranks may take, imports included
+
+
+def _ddp_step_cfg(sync_bn):
+    """The flagship config at its published width, f32 (the card-vs-CPU
+    gates' precision), no warmup, so that step 0 moves the weights."""
+    from multi_part_assembly_tpu_torch.utils import load_cfg_file
+    cfg = load_cfg_file(FLAGSHIP_CFG)
+    cfg.merge_from_list(['optimizer.warmup_ratio', '0.0'])
+    cfg.exp.bf16 = False
+    cfg.exp.sync_bn = sync_bn
+    return cfg
+
+
+def _no_dropout(model):
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    return model
+
+
+def _ddp_rank_step(inp, sync_bn, device):
+    """This rank's half of the global batch through the trainer's
+    `optimize_step`: the mean loss, the averaged gradients and the weights
+    after Adam (flat, on the CPU), and the kernel launches of the step."""
+    from multi_part_assembly_tpu_torch.models import build_model
+    from multi_part_assembly_tpu_torch.parallel import dist
+    from multi_part_assembly_tpu_torch.train.state import build_optimizer
+    from multi_part_assembly_tpu_torch.train.trainer import optimize_step
+    cfg = _ddp_step_cfg(sync_bn)
+    model = _no_dropout(build_model(cfg, device))
+    model.load_state_dict(inp['state'])
+    dist.broadcast_module(model)
+    opt, schedule = build_optimizer(cfg, 1, model)
+    for group in opt.param_groups:
+        group['lr'] = schedule(0)
+    n = B // dist.world()
+    rows = slice(dist.rank() * n, (dist.rank() + 1) * n)
+    data = {k: v[rows].to(device) for k, v in inp['batch'].items()}
+    _reset_launches()
+    logs = optimize_step(model, opt, cfg, data)
+    torch.cuda.synchronize()
+    launches = _launches()
+    return {'loss': logs['loss'], 'grads': _grads(model),
+            'params': torch.cat([p.detach().reshape(-1).cpu()
+                                 for p in model.parameters()]),
+            'launches': launches}
+
+
+def _ddp_rank_trainer(data_dir, run_dir):
+    """train_torch.main on this rank: the flagship config (bf16, published
+    width) at B/2 a rank for one epoch on the dense slot wire, a
+    validation and a rank-0 checkpoint; then a fresh Trainer resumes from
+    it; then one torch.profiler run of two steps with the range
+    grad_all_reduce."""
+    import train_torch
+    from multi_part_assembly_tpu_torch.train.trainer import Trainer
+    launches = {}
+    validate = Trainer.validate
+
+    def counted_validate(self, epoch):
+        torch.cuda.synchronize()
+        launches['train'] = _launches()
+        metrics = validate(self, epoch)
+        torch.cuda.synchronize()
+        launches['val'] = {k: v - launches['train'][k]
+                           for k, v in _launches().items()}
+        return metrics
+
+    Trainer.validate = counted_validate
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        trainer = train_torch.main([
+            '--cfg_file', FLAGSHIP_CFG, '--ckp_dir', run_dir, '--opts',
+            'data.data_dir', data_dir, 'exp.num_epochs', '1',
+            'exp.val_every', '1', 'exp.batch_size', str(B // DDP_WORLD),
+            *DENSE])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        Trainer.validate = validate
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    resumed = Trainer(trainer.cfg, 'cuda', ckp_dir=run_dir, quiet=True)
+    differ = _differing(_state(resumed), _state(trainer))
+    out = {'metrics': trainer.metrics, 'steps': trainer.step_seconds,
+           'launches': launches, 'peak_gib': peak, 'wall': wall,
+           'saved': trainer.ckpt_mgr.all_steps(),
+           'shapes': len(trainer.train_loader.dataset),
+           'layout': trainer.tables['train'].layout,
+           'resume': (resumed.start_epoch, resumed.step, differ,
+                      len(_state(trainer)))}
+    resumed.close()
+    out['profile'] = _profile_steps(trainer, tries=1,
+                                    ranges=('grad_all_reduce', ))
+    trainer.close()
+    return out
+
+
+def ddp_rank(folder):
+    """One rank of phase_ddp (`chip_smoke.py --ddp-rank FOLDER`, under
+    torchrun's variables): (a) the flagship step with sync and with
+    per-replica batch norm, (b) the trainer; writes FOLDER/rank{r}.pt."""
+    from multi_part_assembly_tpu_torch.parallel import dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = dist.init_distributed('cuda')
+    inp = torch.load(os.path.join(folder, 'in.pt'), weights_only=False)
+    res = {'rank': dist.rank(), 'world': dist.world(), 'device': str(device),
+           'backend': torch.distributed.get_backend()}
+    for sync_bn in (True, False):
+        res[f'step_sync_{sync_bn}'] = _ddp_rank_step(inp, sync_bn, device)
+    res['trainer'] = _ddp_rank_trainer(inp['data_dir'], inp['run_dir'])
+    torch.save(res, os.path.join(folder, f'rank{dist.rank()}.pt'))
+    dist.barrier()
+    dist.destroy()
+
+
+def _spawn_ddp_ranks(folder):
+    """Both ranks of phase_ddp as subprocesses with torchrun's variables,
+    each on cuda:0; a rank that fails or outlives DDP_TIMEOUT fails the
+    smoke (the other is killed)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        port = s.getsockname()[1]
+    procs = []
+    for r in range(DDP_WORLD):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(DDP_WORLD),
+                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(DDP_WORLD),
+                   MASTER_ADDR='127.0.0.1', MASTER_PORT=str(port))
+        env.setdefault('GLOO_SOCKET_IFNAME', 'lo')  # both ranks are local
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), '--ddp-rank',
+             folder], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    logs = []
+    try:
+        deadline = time.perf_counter() + DDP_TIMEOUT
+        for p in procs:
+            out, _ = p.communicate(
+                timeout=max(1.0, deadline - time.perf_counter()))
+            logs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        for line in log.splitlines():
+            if not line.startswith('[W'):  # c10d's socket notices
+                print(f'ddp rank {r}| {line}', flush=True)
+        if p.returncode != 0:
+            raise AssertionError(f'ddp: rank {r} exited with '
+                                 f'{p.returncode}')
+    return [torch.load(os.path.join(folder, f'rank{r}.pt'),
+                       weights_only=False) for r in range(DDP_WORLD)]
+
+
+def _ddp_reference(model, batch, cfg, sync_bn):
+    """The one-process step's (loss, gradient) on the global batch: with
+    sync batch norm the whole batch at once; per-replica, JAX's groups
+    (norm.py:88-121): each half with its own moments, the losses and the
+    gradients averaged."""
+    if sync_bn:
+        return _step(model, batch, cfg, 'cuda')
+    halves = [_step(model, {k: v[rows] for k, v in batch.items()}, cfg,
+                    'cuda')
+              for rows in (slice(0, B // 2), slice(B // 2, B))]
+    return (sum(h[0] for h in halves) / 2,
+            sum(h[1] for h in halves) / 2)
+
+
+def phase_ddp(data_dir, tmp):
+    """Data parallelism on two gloo ranks sharing the card (one card: NCCL
+    refuses two ranks on one device).  (a) One flagship step at published
+    width, f32, dropout off, split 2 x B/2 across the ranks against this
+    process's step at B on the same weights and batch: loss within 1e-4
+    relative, gradients 1e-3 relative L2 (the card-vs-CPU gates), both
+    ranks' weights bitwise equal after Adam, B1-B4 once on each rank; with
+    sync batch norm against the whole batch, and per-replica against JAX's
+    per-group rule.  (b) train_torch.py's main on each rank: the flagship
+    (bf16) at B/2 a rank for one epoch on the dense slot wire, a
+    validation (identical metrics on both ranks) and one checkpoint by
+    rank 0; a fresh Trainer on each rank resumes from it bitwise.  (c) the
+    backend, the world, the step time and data wait, the all-reduce's
+    device and host time a step, and each rank's peak memory.  Returns the
+    launch counts of this process and of the ranks."""
+    from multi_part_assembly_tpu_torch.models import build_model
+    _reset_launches()
+    folder = os.path.join(tmp, 'ddp')
+    run_dir = os.path.join(folder, 'run')
+    os.makedirs(folder)
+    # a global batch of B shapes, part counts from the everyday mix
+    batch = _slice_batch(np.random.default_rng(7).choice(PART_POOL, B), 11)
+    torch.manual_seed(0)
+    model = _no_dropout(build_model(_ddp_step_cfg(True), 'cuda')).train()
+    state = {k: v.detach().cpu().clone()
+             for k, v in model.state_dict().items()}
+    refs = {}
+    for sync_bn in (True, False):
+        model.load_state_dict(state)
+        refs[sync_bn] = _ddp_reference(model, batch, _ddp_step_cfg(sync_bn),
+                                       sync_bn)
+    torch.save({'state': state,
+                'batch': {k: v.cpu() for k, v in batch.items()},
+                'data_dir': data_dir, 'run_dir': run_dir},
+               os.path.join(folder, 'in.pt'))
+    del model
+    torch.cuda.empty_cache()
+    totals = _launches()
+    t0 = time.perf_counter()
+    ranks = _spawn_ddp_ranks(folder)
+    wall = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        if (res['rank'], res['world'], res['device'], res['backend']) != \
+                (r, DDP_WORLD, 'cuda:0', 'gloo'):
+            raise AssertionError(f'ddp: rank {r} ran as {res}')
+
+    # (a) the step split across the ranks
+    for sync_bn in (True, False):
+        key = f'step_sync_{sync_bn}'
+        ref_loss, ref_grads = refs[sync_bn]
+        mode = 'sync' if sync_bn else 'per-replica'
+        a, b = ranks[0][key], ranks[1][key]
+        same = torch.equal(a['params'], b['params']) and \
+            torch.equal(a['grads'], b['grads']) and a['loss'] == b['loss']
+        for r, res in enumerate(ranks):
+            got = res[key]
+            rel_loss = abs(got['loss'] - ref_loss) / abs(ref_loss)
+            rel_grad = float((got['grads'] - ref_grads).norm() /
+                             ref_grads.norm())
+            fused = {k: got['launches'][k] for k in FUSED_KEYS}
+            print(f'ddp[{mode} BN] rank {r}: loss {got["loss"]:.7f} vs one '
+                  f'process {ref_loss:.7f} (rel {rel_loss:.2e}, tolerance '
+                  f'1e-4); gradient rel. L2 {rel_grad:.2e} (tolerance '
+                  f'1e-3); B1-B4 launches {fused}', flush=True)
+            if not (math.isfinite(got['loss']) and rel_loss <= 1e-4 and
+                    rel_grad <= 1e-3):
+                raise AssertionError(f'ddp[{mode} BN]: rank {r} disagrees '
+                                     'with the one-process step')
+            if any(v != 1 for v in fused.values()):
+                raise AssertionError(f'ddp[{mode} BN]: rank {r} launched '
+                                     f'B1-B4 {fused}, expected once each')
+        print(f'ddp[{mode} BN]: both ranks\' weights after Adam bitwise '
+              f'equal: {same}', flush=True)
+        if not same:
+            raise AssertionError(f'ddp[{mode} BN]: the ranks diverged')
+
+    # (b) the trainer on both ranks
+    tr = [res['trainer'] for res in ranks]
+    n = len(tr[0]['steps'])
+    n_steps = tr[0]['shapes'] // DDP_WORLD // (B // DDP_WORLD)
+    expected = {'nn_parts': n, 'nn_diag': n, 'bwd_parts': n, 'bwd_diag': n,
+                'sample_dense': n, 'sample_chunked': 0, 'nn_off': 0,
+                'nn_dir': 0, 'lap': 0}
+    for r, t in enumerate(tr):
+        start, step, differ, count = t['resume']
+        print(f'ddp[trainer] rank {r}: {t["layout"]} tables; {n} train '
+              f'steps of batch {B // DDP_WORLD}; checkpoints {t["saved"]}; '
+              f'launches in training {t["launches"]["train"]}, in '
+              f'validation {t["launches"]["val"]}; resumed at epoch '
+              f'{start}, step {step}, tensors not bitwise equal: {differ} '
+              f'of {count}', flush=True)
+        if len(t['steps']) != n_steps or t['layout'] != 'dense' or \
+                t['saved'] != [0]:
+            raise AssertionError(f'ddp[trainer]: rank {r} ran '
+                                 f'{len(t["steps"])} steps on '
+                                 f'{t["layout"]}, saved {t["saved"]}')
+        if t['launches']['train'] != expected:
+            raise AssertionError(f'ddp[trainer]: rank {r} training '
+                                 f'launches differ from {expected}')
+        val = t['launches']['val']
+        if val['nn_diag'] <= 0 or val['sample_dense'] <= 0 or any(
+                val[k] for k in ('bwd_parts', 'bwd_diag', 'nn_off',
+                                 'nn_dir', 'sample_chunked', 'lap')):
+            raise AssertionError(f'ddp[trainer]: rank {r} validation '
+                                 f'launches {val}')
+        if (start, step) != (1, n) or differ:
+            raise AssertionError(f'ddp[trainer]: rank {r} resumed state '
+                                 'differs from the trained one')
+    _check_metrics('ddp[trainer] rank 0', tr[0]['metrics'])
+    if tr[0]['metrics'] != tr[1]['metrics']:
+        raise AssertionError(f'ddp[trainer]: the ranks\' val metrics differ: '
+                             f'{tr[0]["metrics"]} vs {tr[1]["metrics"]}')
+    print('ddp[trainer]: both ranks report identical val metrics',
+          flush=True)
+
+    # (c) what it cost
+    with open(os.path.join(run_dir, 'metrics.jsonl')) as f:
+        waits = [1000.0 * r['train/data_time'] for r in map(json.loads, f)
+                 if 'train/data_time' in r]
+    parts = []
+    for r, t in enumerate(tr):
+        ms = 1000.0 * sum(t['steps'][1:]) / len(t['steps'][1:])
+        prof = t['profile']
+        if prof is None:
+            ar = 'grad_all_reduce not measured (no device events)'
+        else:
+            dev, host = prof[3]['grad_all_reduce']
+            ar = ('grad_all_reduce device ' + (
+                'not measured' if dev is None else f'{dev:.3f} ms') +
+                f', host {host:.3f} ms a step')
+        parts.append(f'rank {r}: {ms:.2f} ms/step (first '
+                     f'{1000 * t["steps"][0]:.1f} ms), peak memory '
+                     f'{t["peak_gib"]:.2f} GiB, {ar}; {_profile_line(prof)}')
+    print(f'ddp ({DDP_LABEL}; backend gloo, world {DDP_WORLD}, '
+          f'{B // DDP_WORLD} a rank = global batch {B}): data wait (rank 0) '
+          f'{sum(waits[1:]) / max(1, len(waits[1:])):.3f} ms/step; '
+          + '; '.join(parts) + f'; both ranks\' wall {wall:.1f} s. Not a '
+          'scaling figure: the ranks share one card and stage every '
+          'collective through host memory', flush=True)
+    for res in ranks:
+        for step in ('step_sync_True', 'step_sync_False'):
+            for k, v in res[step]['launches'].items():
+                totals[k] += v
+        for split in ('train', 'val'):
+            for k, v in res['trainer']['launches'][split].items():
+                totals[k] += v
+    return totals
+
+
 def _timed(phase, *args):
     """phase(*args), its wall time printed."""
     t0 = time.perf_counter()
@@ -2419,7 +2764,8 @@ def main():
         for phase in (_timed(phase_resume, data_dir, tmp),
                       _timed(phase_families, data_dir, tmp),
                       _timed(phase_semantic, partnet_dir, tmp),
-                      _timed(phase_encoders, data_dir, tmp)):
+                      _timed(phase_encoders, data_dir, tmp),
+                      _timed(phase_ddp, data_dir, tmp)):
             for k, v in phase.items():
                 launches[k] += v
     # B7 runs on no training path: its count is the repulsion runs'
@@ -2447,4 +2793,7 @@ def main():
 
 
 if __name__ == '__main__':
-    main()
+    if sys.argv[1:2] == ['--ddp-rank']:
+        ddp_rank(sys.argv[2])
+    else:
+        main()

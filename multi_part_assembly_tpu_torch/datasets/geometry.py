@@ -13,7 +13,8 @@ dataset and its single-shard slot collate), :427-486 (`unpack_parts`,
     a seed, and the card draws the points from resident tables.
 
 The JAX package's packed f16 wire, sharded wires and step grouping exist
-for the TPU's remote runtime and are not ported.
+for the TPU's remote runtime and are not ported: under data parallelism
+each rank drives one device and collates its own shard (`DataLoader`).
 """
 
 import math
@@ -24,6 +25,7 @@ import threading
 import numpy as np
 import torch
 
+from ..parallel import dist
 from ..utils.rotation import (quaternion_invert, quaternion_multiply,
                               quaternion_to_matrix)
 from ..utils.transforms import random_quaternions
@@ -201,22 +203,28 @@ def _to_tensors(batch, pin):
 class DataLoader:
     """Batches of a dataset as dicts of CPU tensors (pinned when a card is
     present), collated by one producer thread that stays _PREFETCH batches
-    ahead of the consumer.  Shuffling is seeded by (seed, epoch).  The
-    dataset collates whole batches itself with `collate_batch(indices)`
-    (JAX datasets/loader.py `batch_collate`), and so chooses the wire: host
-    clouds, or piece slots once device sampling is enabled."""
+    ahead of the consumer.  The order is JAX's (datasets/loader.py:73-85):
+    `np.random.default_rng(seed + epoch)` shuffles arange(n) in place, and
+    rank r of `world` takes order[r::world], cut to n // world indices, so
+    every rank runs the same number of steps.  `rank` and `world` default
+    to the process group's (parallel/dist.py).  The dataset collates whole
+    batches itself with `collate_batch(indices)` (JAX datasets/loader.py
+    `batch_collate`), and so chooses the wire: host clouds, or piece slots
+    once device sampling is enabled."""
 
     def __init__(self, dataset, batch_size, shuffle=False, drop_last=False,
-                 seed=0):
+                 seed=0, rank=None, world=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
         self.epoch = 0
+        self.rank = dist.rank() if rank is None else int(rank)
+        self.world = dist.world() if world is None else int(world)
 
     def __len__(self):
-        n = len(self.dataset)
+        n = len(self.dataset) // self.world  # this rank's shard
         return n // self.batch_size if self.drop_last else \
             math.ceil(n / self.batch_size)
 
@@ -224,10 +232,16 @@ class DataLoader:
         self.epoch = int(epoch)
         self.dataset.set_epoch(epoch)
 
-    def _batches(self):
+    def _indices(self):
+        """This rank's indices of the epoch, in order."""
         n = len(self.dataset)
-        order = np.random.default_rng((self.seed, self.epoch)).permutation(
-            n) if self.shuffle else np.arange(n)
+        order = np.arange(n)
+        if self.shuffle:
+            np.random.default_rng(self.seed + self.epoch).shuffle(order)
+        return order[self.rank::self.world][:n // self.world]
+
+    def _batches(self):
+        order = self._indices()
         for i in range(len(self)):
             yield order[i * self.batch_size:(i + 1) * self.batch_size]
 

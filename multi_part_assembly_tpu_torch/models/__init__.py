@@ -9,10 +9,11 @@ from .dgl import DGLModel
 from .global_ import GlobalModel
 from .identity import IdentityModel
 from .lstm import LSTMModel
+from .modules.norm import MaskedBatchNorm
 from .pn_transformer import PNTransformer, PNTransformerRefine
 from .rgl_net import RGLNet
 
-__all__ = ['build_model', 'label_dim_of', 'IdentityModel', 'GlobalModel',
+__all__ = ['build_model', 'label_dim_of', 'sync_bn_of', 'IdentityModel', 'GlobalModel',
            'LSTMModel', 'DGLModel', 'RGLNet', 'PNTransformer',
            'PNTransformerRefine']
 
@@ -22,12 +23,32 @@ def build_model(cfg, device='cuda'):
     'cpu'): a CUDA device that is absent raises, the CPU is used only when
     asked for.  The weights are drawn on the CPU, so they do not depend on
     the device.  Matmuls run in bf16 unless `cfg.exp.bf16` is False (the
-    JAX package's precision switch, utils/precision.py:34-37)."""
+    JAX package's precision switch, utils/precision.py:34-37).  Every
+    batch norm takes `cfg.exp.sync_bn` (default True: global moments under
+    data parallelism; False: per-replica, JAX trainer.py:495-501)."""
     device = torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError(f'device {str(device)!r} asked for, but no CUDA '
                            'device is available; pass the CPU explicitly')
-    return _build(cfg).to(device)
+    model = _build(cfg)
+    sync = sync_bn_of(cfg)
+    for m in model.modules():
+        if isinstance(m, MaskedBatchNorm):
+            m.sync = sync
+    return model.to(device)
+
+
+def sync_bn_of(cfg):
+    """`cfg.exp.sync_bn`: True (the default) or False, or the word 'true'
+    or 'false' in any case, which `--opts` gives for a key the configs do
+    not set; any other value raises."""
+    value = cfg.exp.get('sync_bn', True)
+    if isinstance(value, str) and value.lower() in ('true', 'false'):
+        return value.lower() == 'true'
+    if not isinstance(value, bool):
+        raise ValueError(f'exp.sync_bn: expected True or False, got '
+                         f'{value!r}')
+    return value
 
 
 def label_dim_of(cfg):

@@ -17,6 +17,7 @@ from torch.utils.checkpoint import checkpoint
 from ...ops.knn import get_graph_feature, knn, neighborhood_reduce
 from ...ops.sampling import (ball_query, furthest_point_sample, gather_points,
                              group_points, three_interpolate, three_nn)
+from ...parallel.dist import all_reduce_sum, world
 from .norm import MaskedBatchNorm, frozen_stats
 
 __all__ = ['PointNet', 'DGCNN', 'PointNet2SSG', 'PointNet2MSG',
@@ -85,7 +86,8 @@ class DGCNN(nn.Module):
     (`ops.knn.neighborhood_reduce`); the train-mode moments over the edges
     come from the sums, in one pass, the variance E[z^2] - mean^2 clamped
     at 0 as JAX computes it (:170-184), and enter the batch norm as
-    injected statistics.  The [B, N, k, 2C] edge tensor never exists.
+    injected statistics, summed over the ranks under data parallelism in
+    both BN modes.  The [B, N, k, 2C] edge tensor never exists.
 
     `naive=True` runs the reference-shaped edge tensor (small inputs; the
     equality test holds the two against each other).
@@ -158,13 +160,21 @@ class DGCNN(nn.Module):
             per_i = s + k * wf  # sum_j z_ij of row i
             per_i2 = q + 2.0 * wf * s + k * wf * wf  # sum_j z_ij^2
             if edge_mask is None:
-                denom = wf.new_tensor(float(B * N) * k)
+                count = wf.new_tensor(float(B * N) * k)
                 tot, tot2 = per_i.sum((0, 1)), per_i2.sum((0, 1))
             else:
                 mw = edge_mask.float()  # [B, 1, 1]
-                denom = torch.clamp(mw.sum() * N * k, min=1.0)
+                count = mw.sum() * N * k
                 tot = (per_i * mw).sum((0, 1))
                 tot2 = (per_i2 * mw).sum((0, 1))
+            if world() > 1:
+                # global sums under either BN mode: injected statistics
+                # stay sync, as JAX's override the per-replica groups
+                # (norm.py:79-86)
+                sums = all_reduce_sum(torch.cat([tot, tot2,
+                                                 count.reshape(1)]))
+                tot, tot2, count = sums[:-1].chunk(2) + (sums[-1], )
+            denom = torch.clamp(count, min=1.0)
             mean = tot / denom
             var = torch.clamp(tot2 / denom - mean * mean, min=0.0)
             stats = (mean, var, denom)

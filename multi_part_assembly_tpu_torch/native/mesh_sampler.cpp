@@ -17,6 +17,7 @@
 // make -C multi_part_assembly_tpu_torch/native BUILD=<build dir>.
 
 #include <sys/stat.h>
+#include <unistd.h>
 
 #include <atomic>
 #include <cmath>
@@ -269,10 +270,12 @@ bool load_mesh_cache(const char *cpath, uint64_t src_size,
 
 void write_mesh_cache(const char *cpath, uint64_t src_size,
                       uint64_t src_mtime_ns, const Mesh &m) {
-  // unique tmp per writer: concurrent loader threads may cache the same
-  // mesh; the atomic rename makes last-writer-wins safe
+  // unique tmp per writer: concurrent loader threads, and the processes
+  // of a data-parallel run, may cache the same mesh; the atomic rename
+  // makes last-writer-wins safe
   static std::atomic<uint64_t> tmp_ctr{0};
   std::string tmp = std::string(cpath) + ".tmp" +
+                    std::to_string(static_cast<long>(getpid())) + "." +
                     std::to_string(tmp_ctr.fetch_add(1));
   {
     std::ofstream out(tmp, std::ios::binary | std::ios::trunc);

@@ -15,6 +15,11 @@ save the epochs are ranked by (metric, epoch), a missing metric counting
 epoch stays, and a new epoch worse than the kept ones is deleted at once,
 as orbax does (tests/test_torch_checkpoint.py holds the two against each
 other).
+
+Under data parallelism rank 0 alone writes and prunes, and every rank
+waits at a barrier after each save, so that a checkpoint is whole before
+any rank reads it; every rank restores from the same directory onto its
+own device.  The ranks rank the same metrics, which the eval all-reduces.
 """
 
 import glob
@@ -23,6 +28,8 @@ import os
 import shutil
 
 import torch
+
+from ..parallel import dist
 
 __all__ = ['CheckpointManager', 'find_last_ckp', 'load_state', 'STATE_FILE',
            'METRICS_FILE']
@@ -53,9 +60,10 @@ class CheckpointManager:
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         # a save that was cut off left only its temporary directory
-        for stale in glob.glob(os.path.join(self.directory,
-                                            _TMP_PREFIX + '*')):
-            shutil.rmtree(stale)
+        if dist.rank() == 0:
+            for stale in glob.glob(os.path.join(self.directory,
+                                                _TMP_PREFIX + '*')):
+                shutil.rmtree(stale)
 
     def _path(self, step):
         return os.path.join(self.directory, str(step))
@@ -80,7 +88,13 @@ class CheckpointManager:
 
     def save(self, step, state, metrics):
         """Write `state` (anything torch.save takes) and `metrics` as
-        epoch `step`, then drop the epochs past MAX_TO_KEEP."""
+        epoch `step`, then drop the epochs past MAX_TO_KEEP: on rank 0,
+        then a barrier for every rank."""
+        if dist.rank() == 0:
+            self._save(step, state, metrics)
+        dist.barrier()
+
+    def _save(self, step, state, metrics):
         final = self._path(step)
         if os.path.exists(final):
             raise FileExistsError(f'checkpoint {final} already exists')

@@ -14,7 +14,16 @@ into a resident table of the split's clouds (JAX trainer.py:324-353 and
 geometric batch on the device (a PartNet batch carries its poses), runs
 `mon_loss`, takes its gradient and an Adam step at the scheduled lr.  The
 TPU runtime's execution kicks and host-to-device probe have no
-counterpart here; data parallelism is not ported yet.
+counterpart here.
+
+Data parallelism (parallel/dist.py; JAX parallel/mesh.py, trainer.py:
+792-866): under several ranks each trains on its shard of the loader at
+`cfg.exp.batch_size` a rank, from rank 0's weights; the gradients are
+averaged over the ranks before clipping and Adam, so every rank takes the
+same step; the eval sums are all-reduced in f64; rank 0 alone logs,
+prints and writes checkpoints, and the PLY export runs only on one rank.
+Rank r draws its augmentation and noise from a generator seeded
+`rank_seed(exp.seed, r)`, which is exp.seed on rank 0.
 """
 
 import json
@@ -31,12 +40,14 @@ from ..datasets.geometry import (augment_geometry_batch,
 from ..datasets.part_table import gather_part_table
 from ..datasets.partnet import enable_device_table
 from ..models import build_model
+from ..parallel import dist
 from .checkpoint import CheckpointManager, load_state
 from .core import mon_loss
 from .state import build_optimizer, clip_gradients
 
-__all__ = ['Trainer', 'JSONLLogger', 'WandbLogger', 'build_logger',
-           'device_sampling_enabled', 'device_table_enabled']
+__all__ = ['Trainer', 'JSONLLogger', 'WandbLogger', 'NullLogger',
+           'build_logger', 'device_sampling_enabled', 'device_table_enabled',
+           'optimize_step']
 
 _SWITCH_WORDS = {'true': True, 'false': False, 'auto': 'auto'}
 _HOST_KEYS = ('data_id', 'shape_id')  # host-only metadata
@@ -70,6 +81,20 @@ class JSONLLogger:
 
     def close(self):
         self._f.close()
+
+
+class NullLogger:
+    """The sink of ranks other than 0: it keeps nothing (JAX trainer.py:
+    859)."""
+
+    def log(self, record, step=None, echo=None):
+        pass
+
+    def log_assemblies(self, *args, **kwargs):
+        pass
+
+    def close(self):
+        pass
 
 
 class WandbLogger(JSONLLogger):
@@ -127,7 +152,10 @@ class WandbLogger(JSONLLogger):
 
 
 def build_logger(cfg, log_dir, quiet=False):
-    """`cfg.exp.wandb: True` adds the wandb mirror (JAX trainer.py:210)."""
+    """`cfg.exp.wandb: True` adds the wandb mirror (JAX trainer.py:210);
+    ranks other than 0 log nothing."""
+    if dist.rank() != 0:
+        return NullLogger()
     if cfg is not None and cfg.exp.get('wandb', False):
         return WandbLogger(
             log_dir, quiet=quiet,
@@ -171,28 +199,55 @@ def device_table_enabled(cfg, device):
     return _switch(cfg, 'device_table', device, 'partnet')
 
 
+def optimize_step(model, optimizer, cfg, data, generator=None):
+    """One optimisation step on an augmented device batch: the MoN loss,
+    its gradients, the mean of the gradients over the ranks, clipping, then
+    the optimizer's step at its groups' lr.  Returns the step's logs as
+    floats, each the mean over the ranks (JAX parallel/mesh.py:122-140:
+    the global batch's)."""
+    model.train()
+    loss, logs = mon_loss(model, data, cfg=cfg, training=True,
+                          generator=generator)
+    optimizer.zero_grad(set_to_none=True)
+    if loss.requires_grad:  # identity's loss needs no gradient
+        loss.backward()
+    # JAX differentiates every parameter: one the loss does not reach
+    # (identity's dummy, LSTM's stop-sign head) takes a zero gradient,
+    # and Adam counts the step for it as optax does
+    params = list(model.parameters())
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    dist.average_gradients(params)
+    clip_gradients(cfg, model)  # the global gradient, as JAX clips
+    optimizer.step()
+    keys = sorted(logs)
+    values = torch.stack([logs[k].detach().float() for k in keys])
+    values = dist.all_reduce_(values) / dist.world()
+    return dict(zip(keys, values.tolist()))  # syncs
+
+
 class Trainer:
     """Trains `cfg` on `device` ('cuda', 'cuda:N' or 'cpu'); a CUDA device
-    that is absent raises, the CPU runs only when asked for.  With `resume`
-    it picks up from the newest checkpoint under `ckp_dir/models`."""
+    that is absent raises, the CPU runs only when asked for.  Under several
+    ranks a CUDA request means this rank's card (parallel/dist.py
+    `rank_device`).  With `resume` it picks up from the newest checkpoint
+    under `ckp_dir/models`."""
 
     def __init__(self, cfg, device, ckp_dir=None, resume=True, quiet=False):
         # fp32 means fp32: no TF32 in matmuls or cuDNN convolutions
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.cfg = cfg
-        self.device = torch.device(device)
-        if self.device.type == 'cuda' and not torch.cuda.is_available():
-            raise RuntimeError(f'device {device!r} asked for, but no CUDA '
-                               'device is available; pass the CPU '
-                               'explicitly to train there')
+        self.device = dist.rank_device(device)
         seed = cfg.exp.get('seed', 0)
         torch.manual_seed(seed)
         # seeded anew on resume, as the JAX trainer restarts its data key
-        # from the seed (trainer.py:585-586)
+        # from the seed (trainer.py:585-586); a stream of its own a rank
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        self.generator.manual_seed(dist.rank_seed(seed))
         self.model = build_model(cfg, self.device)
+        dist.broadcast_module(self.model)
         self._build_loaders(cfg)
         self.optimizer, self.lr_schedule = build_optimizer(
             cfg, max(1, len(self.train_loader)), self.model)
@@ -206,6 +261,7 @@ class Trainer:
         self.step_seconds = []  # wall time of each train step, synchronised
         self.metrics = {}  # the last validation's
         self.test_results = None
+        self._vis_skip_said = False
         if resume:
             self._try_resume()
 
@@ -250,8 +306,9 @@ class Trainer:
         state = self.ckpt_mgr.restore(latest, self.device)
         self._load_state(state)
         self.start_epoch = int(state['epoch']) + 1
-        print(f'resumed from epoch {state["epoch"]} (step {self.step})',
-              flush=True)
+        if dist.rank() == 0:
+            print(f'resumed from epoch {state["epoch"]} (step {self.step})',
+                  flush=True)
 
     def save_checkpoint(self, epoch, metrics):
         self.ckpt_mgr.save(epoch, {
@@ -314,21 +371,9 @@ class Trainer:
             group['lr'] = lr
         self.model.train()
         data = self._augment(batch)
-        loss, logs = mon_loss(self.model, data, cfg=self.cfg, training=True,
-                              generator=self.generator)
-        self.optimizer.zero_grad(set_to_none=True)
-        if loss.requires_grad:  # identity's loss needs no gradient
-            loss.backward()
-        # JAX differentiates every parameter: one the loss does not reach
-        # (identity's dummy, LSTM's stop-sign head) takes a zero gradient,
-        # and Adam counts the step for it as optax does
-        for p in self.model.parameters():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        clip_gradients(self.cfg, self.model)
-        self.optimizer.step()
+        logs = optimize_step(self.model, self.optimizer, self.cfg, data,
+                             self.generator)
         self.step += 1
-        logs = {k: float(v.detach()) for k, v in logs.items()}  # syncs
         logs['lr'] = lr
         return logs
 
@@ -350,7 +395,8 @@ class Trainer:
     @torch.no_grad()
     def _eval_loop(self, loader, prefix):
         """Batch-size weighted means of the per-element eval logs
-        (JAX trainer.py:792-854)."""
+        (JAX trainer.py:792-854); under several ranks the sums and the
+        weight are all-reduced in f64, so every rank returns the same."""
         self.model.eval()
         sums, weight = {}, 0
         for batch in loader:
@@ -361,6 +407,12 @@ class Trainer:
             for k, v in logs.items():
                 sums[k] = sums.get(k, 0.0) + float(v.sum())
             weight += data['part_valids'].shape[0]
+        if dist.world() > 1:
+            keys = sorted(sums)
+            total = dist.all_reduce_(torch.tensor(
+                [sums[k] for k in keys] + [weight], dtype=torch.float64,
+                device=self.device)).tolist()
+            sums, weight = dict(zip(keys, total[:-1])), total[-1]
         return {f'{prefix}/{k}': v / max(weight, 1) for k, v in sums.items()}
 
     def validate(self, epoch):
@@ -368,7 +420,13 @@ class Trainer:
         self.logger.log(metrics, step=self.step, echo=sorted(metrics))
         n_vis = self.cfg.exp.get('val_sample_vis', 0)
         if n_vis and n_vis > 0:
-            self._export_val_vis(epoch, n_vis)
+            # one rank's forward passes only (JAX trainer.py:866)
+            if dist.world() == 1:
+                self._export_val_vis(epoch, n_vis)
+            elif dist.rank() == 0 and not self._vis_skip_said:
+                print('val PLY export skipped: it runs on one rank only',
+                      flush=True)
+                self._vis_skip_said = True
         return metrics
 
     @torch.no_grad()
@@ -411,7 +469,7 @@ class Trainer:
         for epoch in range(self.start_epoch, cfg.exp.num_epochs):
             t0 = time.perf_counter()
             logs = self.train_epoch(epoch)
-            if logs is not None:
+            if logs is not None and dist.rank() == 0:
                 print(f'epoch {epoch}: loss={logs["loss"]:.6f} '
                       f'({time.perf_counter() - t0:.1f}s)', flush=True)
             if (epoch + 1) % cfg.exp.val_every == 0 or \
@@ -431,8 +489,9 @@ class Trainer:
     def test(self):
         """Evaluate on the val split as `test/*` (JAX trainer.py:937-944)."""
         metrics = self._eval_loop(self.val_loader, 'test')
-        print('; '.join(f'{k}: {v:.6f}' for k, v in sorted(metrics.items())),
-              flush=True)
+        if dist.rank() == 0:
+            print('; '.join(f'{k}: {v:.6f}'
+                            for k, v in sorted(metrics.items())), flush=True)
         self.test_results = metrics
         return metrics
 

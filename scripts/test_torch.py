@@ -12,7 +12,9 @@ loaders swapped for each, and prints the LaTeX row of scripts/test.py
 x100); it and any other `--category` apply to geometric configs only.
 `--device` defaults to `cuda` and raises when CUDA is absent; the CPU runs
 only when `--device cpu` asks for it.  A PartNet config reports part_acc
-and connectivity_acc beside its losses.
+and connectivity_acc beside its losses.  Under torchrun each rank tests its
+shard of the val split (`--device cuda`: its own card) and every rank
+returns the all-reduced metrics, which rank 0 prints once.
 """
 
 import argparse
@@ -70,8 +72,10 @@ def _trainer(cfg, device):
 def main(argv=None):
     """Test; returns the `test/*` metrics (one category) or a dict of lists,
     one value a category (`--category all`)."""
+    from multi_part_assembly_tpu_torch.parallel import dist
     from multi_part_assembly_tpu_torch.utils import load_cfg_file
     args = parse_args(argv)
+    device = dist.init_distributed(args.device)
     cfg = load_cfg_file(args.cfg_file)
     if args.opts:
         cfg.merge_from_list(args.opts)
@@ -86,7 +90,7 @@ def main(argv=None):
         if args.category:
             cfg.data.category = args.category
         cfg.freeze()
-        trainer = _trainer(cfg, args.device)
+        trainer = _trainer(cfg, device)
         weight = resolve_weight(args.weight)
         if weight:
             trainer.load_weights(weight)
@@ -105,7 +109,7 @@ def main(argv=None):
             args.weight
         weight = resolve_weight(weight)
         if trainer is None:
-            trainer = _trainer(cat_cfg, args.device)
+            trainer = _trainer(cat_cfg, device)
         else:
             trainer.swap_loaders(cat_cfg)
         if weight:
@@ -114,18 +118,23 @@ def main(argv=None):
             all_results.setdefault(k, []).append(v)
     if trainer is not None:
         trainer.close()
-    print('categories:', all_category)
-    rows = []
-    for k in METRIC_ORDER:
-        if k not in all_results:
-            continue
-        vals = np.asarray(all_results[k]) * SCALE[k]
-        print(f'{k}: ' + ' '.join(f'{v:.2f}' for v in vals) +
-              f' | mean {vals.mean():.2f}')
-        rows.append(f'{vals.mean():.2f}')
-    print('LaTeX row: ' + ' & '.join(rows) + ' \\\\')
+    if dist.rank() == 0:  # every rank holds the all-reduced metrics
+        print('categories:', all_category)
+        rows = []
+        for k in METRIC_ORDER:
+            if k not in all_results:
+                continue
+            vals = np.asarray(all_results[k]) * SCALE[k]
+            print(f'{k}: ' + ' '.join(f'{v:.2f}' for v in vals) +
+                  f' | mean {vals.mean():.2f}')
+            rows.append(f'{vals.mean():.2f}')
+        print('LaTeX row: ' + ' & '.join(rows) + ' \\\\')
     return all_results
 
 
 if __name__ == '__main__':
-    main()
+    from multi_part_assembly_tpu_torch.parallel import dist as _dist
+    try:
+        main()
+    finally:
+        _dist.destroy()

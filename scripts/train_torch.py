@@ -26,7 +26,15 @@ on a `ckp_dir` that holds checkpoints resumes from the newest unless
 state file in it) when nothing was resumed.  The environment variable
 MPA_SEED overrides `exp.seed`.  `--profile DIR` writes a torch.profiler
 trace of one epoch (trained before the run proper, as scripts/train.py
-does) to DIR/trace.json.
+does) to DIR/trace.json; scripts/profile_summary_torch.py summarises it.
+
+Data parallelism: under torchrun (scripts/gpu_run.sh) every process is a
+rank (multi_part_assembly_tpu_torch/parallel/dist.py); `--device cuda`
+means each rank's own card, cuda:LOCAL_RANK, and `--device cpu` ranks
+talk over gloo.  `exp.batch_size` is a rank's batch: D ranks train a
+global batch of D x 32 under a `-32x1-` config.  `--opts exp.sync_bn
+False` gives each rank its own batch-norm statistics.  Rank 0 alone
+prints, logs and writes checkpoints.
 """
 
 import argparse
@@ -106,29 +114,38 @@ def profile_epoch(trainer, out_dir):
 
 def main(argv=None):
     """Train; returns the Trainer (its last validation in .metrics)."""
+    from multi_part_assembly_tpu_torch.parallel import dist
     from multi_part_assembly_tpu_torch.train.trainer import Trainer
     args = parse_args(argv)
+    device = dist.init_distributed(args.device)
     cfg = build_cfg(args)
-    print(cfg)
-    trainer = Trainer(cfg, args.device, ckp_dir=cfg.exp.ckp_dir,
+    lead = dist.rank() == 0
+    if lead:
+        print(cfg)
+    trainer = Trainer(cfg, device, ckp_dir=cfg.exp.ckp_dir,
                       resume=not args.no_resume)
     if args.weight and trainer.start_epoch == 0:
         trainer.load_weights(args.weight)
     for split, tables in trainer.tables.items():
-        if tables is not None:
+        if tables is not None and lead:
             print(f'{split}: device sampling, {tables.layout} tables of '
                   f'{tables.nbytes} bytes', flush=True)
     for split, table in trainer.part_tables.items():
-        if table is not None:
+        if table is not None and lead:
             print(f'{split}: resident part table of {table.nbytes} bytes',
                   flush=True)
     if args.profile:
         profile_epoch(trainer, args.profile)
     trainer.fit()
     trainer.close()
-    print('Done training!')
+    if lead:
+        print('Done training!')
     return trainer
 
 
 if __name__ == '__main__':
-    main()
+    from multi_part_assembly_tpu_torch.parallel import dist as _dist
+    try:
+        main()
+    finally:
+        _dist.destroy()

@@ -76,7 +76,10 @@ import multi_part_assembly_tpu_torch.train.checkpoint
 import multi_part_assembly_tpu_torch.train.vis_utils
 import multi_part_assembly_tpu_torch.utils.misc
 import multi_part_assembly_tpu_torch.utils.eval_utils
+import multi_part_assembly_tpu_torch.parallel
+import multi_part_assembly_tpu_torch.parallel.dist
 import train_torch, test_torch, e2e_check_torch
+import print_cfg_torch, vis_torch, collect_test_torch, profile_summary_torch
 from multi_part_assembly_tpu_torch.utils.rotation import Rotation3D
 B, N = 2, 16
 for rot_type, rot_dim in (('quat', 4), ('rmat', 6)):
@@ -104,10 +107,10 @@ print('ok')
 
 
 def test_port_never_imports_jax():
-    """A fresh interpreter imports the port and its scripts, loads the
-    flagship config, builds the model with each pose head (quat and 6D)
-    and runs one CPU forward without loading JAX, flax, optax, orbax or
-    the JAX package."""
+    """A fresh interpreter imports the port (data parallelism too) and its
+    scripts (the harness's too), loads the flagship config, builds the
+    model with each pose head (quat and 6D) and runs one CPU forward
+    without loading JAX, flax, optax, orbax or the JAX package."""
     proc = subprocess.run([sys.executable, '-c', _NO_JAX],
                           capture_output=True, text=True, timeout=240,
                           cwd=ROOT)

@@ -607,3 +607,69 @@ def test_encoder_card_matches_cpu(cuda, arch):
         jitter = max(jitter, float((g_n - g_g).norm() / g_g.norm()))
     torch.testing.assert_close(out_g, out_c, atol=1e-4, rtol=1e-4)
     assert float((g_g - g_c).norm() / g_c.norm()) <= 1e-3 + 2 * jitter
+
+
+_SYNC_BN_RANK = """
+import sys, torch
+sys.path.insert(0, {root!r})
+from multi_part_assembly_tpu_torch.models.modules.norm import MaskedBatchNorm
+from multi_part_assembly_tpu_torch.parallel import dist
+device = dist.init_distributed('cuda')
+r = dist.rank()
+inp = torch.load(sys.argv[1])
+half = inp['x'].shape[0] // 2
+rows = slice(r * half, (r + 1) * half)
+bn = MaskedBatchNorm(inp['x'].shape[-1], lean=inp['lean']).to(device)
+bn.train()
+x = inp['x'][rows].to(device).requires_grad_(True)
+out = bn(x, inp['mask'][rows].to(device))
+(out * inp['g'][rows].to(device)).sum().backward()
+torch.save({{'backend': torch.distributed.get_backend(),
+            'device': str(device), 'out': out.detach().cpu(),
+            'dx': x.grad.cpu(),
+            'dweight': dist.all_reduce_(bn.weight.grad.clone()).cpu(),
+            'running_mean': bn.running_mean.cpu(),
+            'running_var': bn.running_var.cpu()}}, sys.argv[2])
+dist.barrier()
+dist.destroy()
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('lean', [False, True])
+def test_sync_bn_two_gloo_ranks_on_one_card(cuda, lean, tmp_path):
+    """Sync MaskedBatchNorm on two gloo ranks sharing cuda:0, each on half
+    the batch, equals one process on the whole batch on the card: outputs
+    and input gradients atol 1e-5, weight gradients and running statistics
+    atol 1e-5, rtol 1e-5."""
+    from torch_ddp_worker import ROOT, spawn_ranks
+    from multi_part_assembly_tpu_torch.models.modules.norm import \
+        MaskedBatchNorm
+    rng = np.random.RandomState(3)
+    valids = np.arange(5)[None] < np.asarray([2, 5, 1, 4])[:, None]
+    inp = {'lean': lean,
+           'x': torch.tensor(rng.randn(4, 5, 16, 32).astype(np.float32)),
+           'mask': torch.tensor(valids[..., None].astype(np.float32)),
+           'g': torch.tensor(rng.randn(4, 5, 16, 32).astype(np.float32))}
+    torch.save(inp, tmp_path / 'in.pt')
+    spawn_ranks(lambda r: ['-c', _SYNC_BN_RANK.format(root=ROOT),
+                           str(tmp_path / 'in.pt'),
+                           str(tmp_path / f'out{r}.pt')], timeout=240)
+    res = [torch.load(tmp_path / f'out{r}.pt') for r in range(2)]
+    bn = MaskedBatchNorm(32, lean=lean).to(cuda)
+    bn.train()
+    x = inp['x'].to(cuda).requires_grad_(True)
+    out = bn(x, inp['mask'].to(cuda))
+    (out * inp['g'].to(cuda)).sum().backward()
+    for r in res:
+        assert r['backend'] == 'gloo' and r['device'] == 'cuda:0'
+    torch.testing.assert_close(torch.cat([r['out'] for r in res]),
+                               out.detach().cpu(), atol=1e-5, rtol=0)
+    torch.testing.assert_close(torch.cat([r['dx'] for r in res]),
+                               x.grad.cpu(), atol=1e-5, rtol=0)
+    for r in res:
+        for name, want in (('dweight', bn.weight.grad),
+                           ('running_mean', bn.running_mean),
+                           ('running_var', bn.running_var)):
+            torch.testing.assert_close(r[name], want.cpu(), atol=1e-5,
+                                       rtol=1e-5)
