@@ -121,7 +121,9 @@ Phases, each printing its own line(s); any failure exits non-zero:
      scripts/train_torch.py's main with each, one epoch (4 steps) at batch
      32 (MSG at 16 when 32 does not fit the card, said so) on the dense
      slot wire with a validation and a checkpoint, gated as phase 7 with
-     T = 1; step time, data wait, peak memory, and one torch.profiler run
+     T = 1 (PointNet++ SSG and MSG run eager steps, by train/step.py's
+     rule: their activations do not fit the card twice); step time, data
+     wait, peak memory, and one torch.profiler run
      of two steps: kernels a step, device idle, and the device and host
      time of the ranges knn, neighborhood_reduce (and _backward),
      furthest_point_sample and ball_query;
@@ -139,7 +141,31 @@ Phases, each printing its own line(s); any failure exits non-zero:
      identically, one checkpoint written by rank 0, a fresh Trainer on
      each rank resuming from it bitwise; printed, labelled "gloo, 2 ranks
      sharing one card": step time, data wait, the device and host time
-     of the profiler range grad_all_reduce, and each rank's peak memory.
+     of the profiler range grad_all_reduce, and each rank's peak memory;
+ 11. graph: the compiled step (train/step.py) on the flagship's dense slot
+     wire, host wire, chunked layout and unfused route and the semantic
+     PN-Transformer's two wires, each at full width: 24 steps (the first
+     alone, then groups of up to 8, exp.steps_per_call 8) replayed from
+     one captured CUDA graph against as many eager steps from the same
+     weights, batches and generator states: every logged value, parameter,
+     buffer and Adam tensor bitwise after the first step and after the
+     last (else the largest relative difference printed, held under
+     1e-6; the unfused route under PyTorch's deterministic algorithms,
+     whose index_add_ sorts where it would add by atomics); the
+     wrapper launches exactly the traced step bodies' (two warm-up steps,
+     undone, and the capture) and the sampler's once a batch; the kernels
+     of a replayed step by torch.profiler (B1/B3's kernel 2 x S x T, B2
+     and B4 S x T, L1 S x T, B8 4 x S x T on the unfused route); eager
+     against graphed step time, device idle share, peak memory and capture
+     seconds, beside the card's name and power limit.
+Since the compiled step, every training run of phases 5-9 trains through
+the graphed trainer (one rank on the card): each checks that every train
+step was a replay of one capture; the launch counters count the traced
+step bodies, not replays, so the exact gates of phases 7-9 read T (or
+S x T) times the traced bodies, and torch.profiler counts the kernels of a
+replayed step; phases 7 and 9 time eager against graphed steps; the
+resumed epochs of phases 6-8 run through the trainer's own (graphed)
+epoch loop.  Phase 10's two ranks run eagerly.
 The smoke prints its total wall time; the line before the last is a JSON
 summary of the kernels; the last line is {"ok": true, "device": {...}}.
 """
@@ -171,6 +197,8 @@ from multi_part_assembly_tpu_torch.ops import \
     matching as LAP  # noqa: E402
 from multi_part_assembly_tpu_torch.ops import \
     sampling as SMP  # noqa: E402
+from multi_part_assembly_tpu_torch.train.step import (  # noqa: E402
+    WARMUP_STEPS, uncapturable)
 
 FLAGSHIP_CFG = os.path.join(
     ROOT, 'configs/pn_transformer/pn_transformer/'
@@ -1246,6 +1274,22 @@ def _check_metrics(tag, metrics, prefix='val', names=EVAL_KEYS):
                              f'non-finite {bad}')
 
 
+def _check_replayed(tag, trainer):
+    """Every train step of the run a replay of the trainer's one captured
+    CUDA graph (train/step.py); prints the capture's wall time."""
+    compiled = trainer.compiled
+    if compiled is None or compiled.captures != 1 or \
+            compiled.replays != trainer.step:
+        got = None if compiled is None else \
+            (compiled.captures, compiled.replays)
+        raise AssertionError(f'{tag}: expected {trainer.step} replays of '
+                             f'one capture, got {got}')
+    print(f'{tag}: {compiled.replays} train steps, each a replay of one '
+          f'CUDA graph captured in {compiled.capture_seconds:.2f} s '
+          f'({WARMUP_STEPS} warm-up steps undone, {compiled.traced} step '
+          f'bodies traced); groups of {trainer.steps_per_call}', flush=True)
+
+
 def _train_run(index, data_dir, tmp):
     """One flagship run through train_torch.main: three epochs and a
     validation, every launch counter reset just before it."""
@@ -1320,6 +1364,7 @@ def _train_run(index, data_dir, tmp):
         raise AssertionError(f'{tag}: expected one checkpoint, got {saved}')
     print(f'{tag}: kernel launches in training {launches["train"]}, in '
           f'validation {launches["val"]}', flush=True)
+    _check_replayed(tag, trainer)
 
     if (None if tables is None else tables.layout) != layout or \
             (trainer.tables['val'] is None) != (layout is None):
@@ -1389,15 +1434,27 @@ def _differing(a, b):
             if x.dtype != y.dtype or not torch.equal(x, y)]
 
 
-def _adam_steps_on_cpu(trainer):
-    return all(st['step'].device.type == 'cpu' and
-               st['step'].dtype == torch.float32
-               for st in trainer.optimizer.state.values())
+def _adam_steps_placed(trainer):
+    """Adam's step counts in f32 where the optimizer keeps them: on the
+    card for a capturable one (one rank on the card), else on the CPU."""
+    return all(
+        st['step'].dtype == torch.float32 and st['step'].device.type ==
+        (trainer.device.type if g['capturable'] else 'cpu')
+        for g in trainer.optimizer.param_groups
+        for st in (trainer.optimizer.state[p] for p in g['params']))
 
 
 def _epoch_losses(trainer, epoch):
-    trainer.train_loader.set_epoch(epoch)
-    return [trainer.train_step(b)['loss'] for b in trainer.train_loader]
+    """One epoch of the trainer's own loop (graphed where it replays);
+    the losses of its steps as logged."""
+    rows = []
+    trainer.logger.log = lambda record, step=None, echo=None: \
+        rows.append(record)
+    try:
+        trainer.train_epoch(epoch)
+    finally:
+        del trainer.logger.log
+    return [r['train/loss'] for r in rows if 'train/loss' in r]
 
 
 def phase_resume(data_dir, tmp):
@@ -1450,9 +1507,10 @@ def phase_resume(data_dir, tmp):
               f'{second.start_epoch}, step {second.step} (first trainer '
               f'{first.step}); tensors not bitwise equal to the first '
               f'trainer\'s: {differ} of {len(_state(first))}; Adam steps '
-              f'on the CPU in f32 {_adam_steps_on_cpu(second)}', flush=True)
+              f'in f32 on the card (capturable) {_adam_steps_placed(second)}',
+              flush=True)
         if second.start_epoch != 2 or second.step != first.step or differ \
-                or not _adam_steps_on_cpu(second):
+                or not _adam_steps_placed(second):
             raise AssertionError('resume: the resumed state differs')
 
         # card -> CPU -> card: the checkpoint loads into a CPU trainer,
@@ -1469,12 +1527,12 @@ def phase_resume(data_dir, tmp):
         back_differ = _differing(_state(second), _state(first))
         print(f'resume: card checkpoint loaded on the CPU, tensors not '
               f'bitwise equal {cpu_differ}, Adam steps on the CPU in f32 '
-              f'{_adam_steps_on_cpu(cpu)}; the CPU trainer\'s checkpoint '
+              f'{_adam_steps_placed(cpu)}; the CPU trainer\'s checkpoint '
               f'loaded on the card: not bitwise equal {back_differ}, Adam '
-              f'steps on the CPU in f32 {_adam_steps_on_cpu(second)}',
+              f'steps on the card in f32 {_adam_steps_placed(second)}',
               flush=True)
-        if cpu_differ or back_differ or not _adam_steps_on_cpu(cpu) or \
-                not _adam_steps_on_cpu(second):
+        if cpu_differ or back_differ or not _adam_steps_placed(cpu) or \
+                not _adam_steps_placed(second):
             raise AssertionError('resume: a checkpoint changed crossing '
                                  'devices')
         cpu.close()
@@ -1705,7 +1763,7 @@ def _family_run(family, data_dir, tmp):
 
 
 def _epoch_run(tag, path, T, opts, data_dir, run_dir, batch=B, ranges=(),
-               identity=False):
+               identity=False, graph_steps=4):
     """scripts/train_torch.py's main on a config, on the dense slot wire:
     one epoch (4 steps of batch 32, 8 of 16) and a validation with its
     checkpoint.
@@ -1769,12 +1827,23 @@ def _epoch_run(tag, path, T, opts, data_dir, run_dir, batch=B, ranges=(),
         raise AssertionError(f'{tag}: expected one checkpoint on the dense '
                              f'wire, got {saved}')
     n = len(steps)
-    grad = 0 if identity else T * n
-    expected = {'nn_parts': T * n, 'nn_diag': T * n, 'bwd_parts': grad,
-                'bwd_diag': grad, 'sample_dense': n, 'sample_chunked': 0,
-                'nn_off': 0, 'nn_dir': 0, 'lap': 0}
+    reason = uncapturable(trainer.cfg)
+    if reason is None:
+        _check_replayed(tag, trainer)
+        # the wrappers count the step bodies traced (warm-ups and the
+        # capture), not the replays; the sampler runs once a batch in front
+        traced = trainer.compiled.traced
+    elif trainer.compiled is not None:
+        raise AssertionError(f'{tag}: captured a config that runs eagerly')
+    else:
+        print(f'{tag}: eager steps by rule ({reason})', flush=True)
+        traced = n
+    per_step = _step_expected(1, T, 'auto', False, identity)
+    expected = {k: v * traced for k, v in per_step.items()}
+    expected.update(sample_dense=n, sample_chunked=0)
     print(f'{tag}: kernel launches in training {launches["train"]} '
-          f'(expected {expected}: T = {T} a step), in validation '
+          f'(expected {traced} step bodies run x {per_step}: T = {T} a '
+          f'step; the sampler once a batch), in validation '
           f'{launches["val"]}', flush=True)
     if launches['train'] != expected:
         raise AssertionError(f'{tag}: training launches differ from the '
@@ -1784,11 +1853,26 @@ def _epoch_run(tag, path, T, opts, data_dir, run_dir, batch=B, ranges=(),
             val[k] for k in ('bwd_parts', 'bwd_diag', 'nn_off', 'nn_dir',
                              'sample_chunked', 'lap')):
         raise AssertionError(f'{tag}: validation launches {val}')
-    profile = _profile_steps(trainer, ranges=ranges)
-    print(f'{tag}: torch.profiler over 2 steps: {_profile_line(profile)}',
-          flush=True)
+    profile = _profile_steps(trainer, ranges=ranges) if ranges else None
+    if ranges:
+        print(f'{tag}: torch.profiler over 2 eager steps: '
+              f'{_profile_line(profile)}', flush=True)
+    if reason is not None:
+        trainer.close()
+        return totals, (ms, wait_ms, peak_gib, profile, None)
+    graph = _eager_vs_graph(tag, trainer, n=graph_steps)
+    replay = graph[-1]
+    want = _replay_expected(1, T, 'auto', False, identity)
+    if replay is None or {k: round(v, 3) for k, v in replay[0].items()} \
+            != want:
+        raise AssertionError(f'{tag}: a replayed step\'s kernels '
+                             f'{None if replay is None else replay[0]}, '
+                             f'expected {want}')
+    print(f'{tag}: kernels of a replayed step by torch.profiler '
+          f'{replay[0]} (expected {want}), {replay[1]:.0f} kernels, '
+          f'{replay[2]:.2f} ms of device time a step', flush=True)
     trainer.close()
-    return totals, (ms, wait_ms, peak_gib, profile)
+    return totals, (ms, wait_ms, peak_gib, profile, graph[:-1])
 
 
 def _family_resume(family, data_dir, tmp):
@@ -1842,9 +1926,9 @@ def phase_families(data_dir, tmp):
         for k, v in launches.items():
             totals[k] = totals.get(k, 0) + v
     print('families: ' + '; '.join(
-        f'{f} {ms:.2f} ms/step, wait {w:.3f} ms, {mem:.2f} GiB, '
-        f'{_profile_line(prof)}'
-        for f, (ms, w, mem, prof) in rows.items()), flush=True)
+        f'{f} {ms:.2f} ms/step in the epoch, wait {w:.3f} ms, {mem:.2f} '
+        f'GiB; {_graph_summary(g)}'
+        for f, (ms, w, mem, _, g) in rows.items()), flush=True)
     _reset_launches()
     _family_resume('dgl', data_dir, tmp)
     for k, v in _launches().items():
@@ -2177,16 +2261,19 @@ def _semantic_run(tag, cfg_path, opts, data_dir, run_dir, S, T, epochs):
     if saved != [epochs - 1] or bad:
         raise AssertionError(f'{tag}: expected one checkpoint and no '
                              f'geometric metrics, got {saved}, {bad}')
-    grad = 0 if 'identity' in cfg_path else S * T * n
+    _check_replayed(tag, trainer)
+    # the wrappers count the step bodies traced (warm-ups and the capture)
+    traced = trainer.compiled.traced
     expected = {k: 0 for k in _launches()}
-    expected.update(nn_parts=S * T * n, nn_diag=S * T * n, bwd_parts=grad,
-                    bwd_diag=grad, lap=S * T * n)
+    expected.update({k: v * traced for k, v in _step_expected(
+        S, T, 'auto', True, 'identity' in cfg_path).items()})
     nv = len(trainer.val_loader)
     val_expected = {k: 0 for k in _launches()}
     val_expected.update(nn_parts=S * nv, nn_diag=2 * S * nv, lap=S * nv)
     print(f'{tag}: kernel launches in training {launches["train"]} '
-          f'(expected S x T x steps = {S} x {T} x {n}), in validation '
-          f'{launches["val"]} (expected {val_expected})', flush=True)
+          f'(expected S x T x traced step bodies = {S} x {T} x {traced}), '
+          f'in validation {launches["val"]} (expected {val_expected})',
+          flush=True)
     if launches['train'] != expected or launches['val'] != val_expected:
         raise AssertionError(f'{tag}: launches differ from the expected '
                              'counts')
@@ -2361,7 +2448,7 @@ def _encoder_run(arch, data_dir, tmp, batch):
         f'encoder[{arch}]', FLAGSHIP_CFG, 1,
         ['model.encoder', arch, 'exp.val_sample_vis', '0'], data_dir,
         os.path.join(tmp, f'encoder_{arch}_{batch}'), batch=batch,
-        ranges=ENCODER_RANGES)
+        ranges=ENCODER_RANGES, graph_steps=2)
 
 
 def phase_encoders(data_dir, tmp):
@@ -2394,9 +2481,343 @@ def phase_encoders(data_dir, tmp):
         for k, v in launches.items():
             totals[k] = totals.get(k, 0) + v
     print('encoders: ' + '; '.join(
-        f'{a} batch {b}: {ms:.2f} ms/step, wait {w:.3f} ms, {mem:.2f} GiB, '
-        f'{_profile_line(prof)}'
-        for a, (b, ms, w, mem, prof) in rows.items()), flush=True)
+        f'{a} batch {b}: {ms:.2f} ms/step in the epoch, wait {w:.3f} ms, '
+        f'{mem:.2f} GiB, eager {_profile_line(prof)}; {_graph_summary(g)}'
+        for a, (b, ms, w, mem, prof, g) in rows.items()), flush=True)
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# the compiled step: CUDA-graph replays against eager steps (train/step.py)
+# ---------------------------------------------------------------------------
+
+GRAPH_GROUP = 8  # exp.steps_per_call of phase_graph's runs
+GRAPH_GROUPS = 3  # groups a run: 24 steps
+GRAPH_RTOL = 1e-6  # the most a graphed value may differ, relative, if any
+# (label, config, --opts, chamfer fused mode, MoN samples S)
+GRAPH_RUNS = [
+    ('flagship, dense slot wire', FLAGSHIP_CFG, DENSE, 'auto', 1),
+    ('flagship, host wire', FLAGSHIP_CFG, ['data.device_sampling', 'False'],
+     'auto', 1),
+    ('flagship, chunked slot wire', FLAGSHIP_CFG,
+     ['data.device_sampling', 'True', 'data.device_table_layout',
+      'chunked'], 'auto', 1),
+    # (deterministic algorithms on: see _graph_run)
+    ('flagship, unfused route', FLAGSHIP_CFG, DENSE, 'off', 1),
+    ('semantic, slot wire', PARTNET_CFG, ['data.device_table', 'True'],
+     'auto', 5),
+    ('semantic, host wire', PARTNET_CFG, ['data.device_table', 'False'],
+     'auto', 5),
+]
+# kernel names a replayed step's profile counts: B1 and B3 are one kernel
+# (`chamfer_pair_kernel<2>`), B2 and B4 two, B8 the one-direction pair
+# kernel, L1 the LAP kernel
+REPLAY_KERNELS = {'B1+B3': 'chamfer_pair_kernel<2>',
+                  'B2': 'chamfer_grad_kernel<false>',
+                  'B4': 'chamfer_grad_kernel<true>',
+                  'B8': 'chamfer_pair_kernel<1>', 'L1': 'lap_kernel'}
+
+
+def _replay_expected(S, T, mode, semantic, identity=False):
+    """Kernels of one train step by REPLAY_KERNELS' names."""
+    n = S * T
+    grad = 0 if identity else n
+    fused = mode != 'off'
+    return {'B1+B3': 2 * n if fused else 0, 'B2': grad if fused else 0,
+            'B4': grad if fused else 0, 'B8': 0 if fused else 4 * n,
+            'L1': n if semantic else 0}
+
+
+def _step_expected(S, T, mode, semantic, identity=False):
+    """Wrapper launches of one step body by launch counter."""
+    n = S * T
+    grad = 0 if identity or mode == 'off' else n
+    fused = mode != 'off'
+    return {'nn_parts': n if fused else 0, 'nn_diag': n if fused else 0,
+            'bwd_parts': grad, 'bwd_diag': grad,
+            'nn_off': 0 if fused else 4 * n, 'nn_dir': 0,
+            'lap': n if semantic else 0}
+
+
+def _host_batches(trainer, n):
+    """The first n train batches, epoch after epoch, as the loader gives
+    them (host tensors and slot-wire handles; each may be used again)."""
+    out, epoch = [], 0
+    while len(out) < n:
+        trainer.train_loader.set_epoch(epoch)
+        out += list(trainer.train_loader)
+        epoch += 1
+    return out[:n]
+
+
+def _run_groups(trainer, groups):
+    """Each group of host batches dispatched as one group of steps, as the
+    epoch loop does, then one flush; returns the rows the flush logged."""
+    rows = []
+    trainer.logger.log = lambda record, step=None, echo=None: \
+        rows.append(dict(record, step=step))
+    try:
+        for group in groups:
+            trainer._dispatch(group, [0.0] * len(group))
+        trainer._flush_train_logs()
+    finally:
+        del trainer.logger.log
+    return rows
+
+
+def _timed_groups(trainer, groups):
+    """(rows, ms a step) of _run_groups, its flush synchronising."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = _run_groups(trainer, groups)
+    steps = sum(map(len, groups))
+    return rows, 1000.0 * (time.perf_counter() - t0) / steps
+
+
+def _profile_groups(trainer, groups):
+    """(device kernels by REPLAY_KERNELS name a step, all device kernels a
+    step, device ms a step, wall ms a step) of the groups' steps under
+    torch.profiler; None when it records no device event."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        _run_groups(trainer, groups)
+        wall = time.perf_counter() - t0
+    kernels = _device_kernels(prof)
+    if not kernels:
+        return None
+    steps = sum(map(len, groups))
+    named = {k: sum(name in ev.name for ev in kernels) / steps
+             for k, name in REPLAY_KERNELS.items()}
+    busy = sum(ev.time_range.elapsed_us() for ev in kernels) / 1e3 / steps
+    return named, len(kernels) / steps, busy, 1e3 * wall / steps
+
+
+def _largest_rel(a, b):
+    """(largest relative difference, name) of two _state lists."""
+    worst, where = 0.0, None
+    for (name, x), (_, y) in zip(a, b):
+        if torch.equal(x, y):
+            continue
+        x, y = x.double(), y.double()
+        rel = float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+        if rel >= worst:
+            worst, where = rel, name
+    return worst, where
+
+
+def _graph_run(label, path, opts, mode, S, data_dir, tmp):
+    """phase_graph's check of one path: a graphed and an eager Trainer
+    from the same seed take GRAPH_GROUPS groups of GRAPH_GROUP steps on the
+    same batches from the same generator states; returns the row of
+    numbers printed."""
+    import train_torch
+    from multi_part_assembly_tpu_torch.train.trainer import Trainer
+    tag = f'graph[{label}]'
+    prev_mode = C.fused_mode()
+    C.set_fused_mode(mode)
+    # the unfused route's plain backward adds by index_add_, whose atomics
+    # add in an order that varies from run to run on the card; PyTorch's
+    # deterministic algorithms sort instead, so that the graphed and the
+    # eager steps can be held to each other bit for bit
+    determined = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(mode == 'off', warn_only=True)
+    try:
+        trainers = {}
+        for name in ('graph', 'eager'):
+            run_dir = os.path.join(tmp, f'graph_{len(os.listdir(tmp))}')
+            cfg = train_torch.build_cfg(train_torch.parse_args([
+                '--cfg_file', path, '--ckp_dir', run_dir, '--opts',
+                'data.data_dir', data_dir, 'exp.val_sample_vis', '0',
+                'exp.steps_per_call', str(GRAPH_GROUP), *opts]))
+            trainers[name] = Trainer(cfg, 'cuda', ckp_dir=run_dir,
+                                     resume=False, quiet=True)
+        graph, eager = trainers['graph'], trainers['eager']
+        semantic = graph.cfg.data.dataset != 'geometry'
+        eager.compiled = None
+        if graph.compiled is None or graph.steps_per_call != GRAPH_GROUP:
+            raise AssertionError(f'{tag}: the trainer does not replay a '
+                                 f'graph in groups of {GRAPH_GROUP}')
+        batches = _host_batches(graph, GRAPH_GROUP * GRAPH_GROUPS)
+        # the first step alone (its state is compared on its own), then
+        # the rest of the first group, then whole groups, the last timed
+        groups = [batches[:1], batches[1:GRAPH_GROUP]] + [
+            batches[i:i + GRAPH_GROUP]
+            for i in range(GRAPH_GROUP, len(batches), GRAPH_GROUP)]
+        rng = torch.cuda.get_rng_state()  # dropout's stream
+        out, totals = {}, {}
+        for name, trainer in (('graph', graph), ('eager', eager)):
+            torch.cuda.set_rng_state(rng)
+            _reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            rows = _run_groups(trainer, groups[:1])
+            first = _state(trainer)
+            rows += _run_groups(trainer, groups[1:-1])
+            launches = _launches()
+            more, ms = _timed_groups(trainer, groups[-1:])
+            out[name] = (rows + more, _state(trainer), ms,
+                         torch.cuda.max_memory_allocated() / 2**30,
+                         launches, first)
+            for k, v in _launches().items():
+                totals[k] = totals.get(k, 0) + v
+        profile = {name: _profile_groups(trainer, groups[-1:])
+                   for name, trainer in (('graph', graph),
+                                         ('eager', eager))}
+        synced_ms = _synced_ms(eager, groups[-1])
+        compiled = graph.compiled
+        graph.close()
+        eager.close()
+    finally:
+        C.set_fused_mode(prev_mode)
+        torch.use_deterministic_algorithms(determined)
+
+    (g_rows, g_state, g_ms, g_peak, g_launch, g_first) = out['graph']
+    (e_rows, e_state, e_ms, e_peak, _, e_first) = out['eager']
+    for when, g, e, gr, er in (
+            ('after the first step', g_first, e_first, g_rows[:1],
+             e_rows[:1]),
+            (f'after {len(g_rows)} steps', g_state, e_state, g_rows,
+             e_rows)):
+        differ = _differing(g, e)
+        print(f'{tag}: {when}: logs bitwise equal to the eager steps\' '
+              f'{gr == er}; tensors not bitwise equal {len(differ)} of '
+              f'{len(e)}', flush=True)
+        if not differ and gr == er:
+            continue
+        worst, where = _largest_rel(g, e)
+        rows_rel = max((abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                        for a, b in zip(gr, er) for k in a
+                        if k.startswith('train/')), default=0.0)
+        print(f'{tag}: {when}: largest relative difference {worst:.3e} in '
+              f'{where}, {rows_rel:.3e} in the logs (limit {GRAPH_RTOL})',
+              flush=True)
+        if max(worst, rows_rel) > GRAPH_RTOL:
+            raise AssertionError(f'{tag}: graphed steps differ from eager '
+                                 'steps')
+    print(f'{tag}: {len(g_rows)} steps in groups of up to {GRAPH_GROUP}, '
+          f'{compiled.captures} capture(s) ({compiled.capture_seconds:.2f} '
+          f's, {WARMUP_STEPS} warm-up steps undone), {compiled.replays} '
+          'replays', flush=True)
+    if len(g_rows) != GRAPH_GROUP * GRAPH_GROUPS or compiled.captures != 1 \
+            or compiled.replays != len(g_rows) + GRAPH_GROUP:
+        raise AssertionError(f'{tag}: expected every step a replay of one '
+                             'capture')
+    per_body = _step_expected(S, 1, mode, semantic)
+    n_batches = GRAPH_GROUP * (GRAPH_GROUPS - 1)
+    want = {k: v * compiled.traced for k, v in per_body.items()}
+    sampler = None if semantic or 'False' in opts else \
+        ('sample_chunked' if 'chunked' in opts else 'sample_dense')
+    for key in DS.LAUNCHES:
+        want[key] = n_batches if key == sampler else 0
+    print(f'{tag}: wrapper launches of the graphed run {g_launch} (expected '
+          f'{compiled.traced} traced bodies x {per_body}, the sampler once '
+          f'a batch)', flush=True)
+    if g_launch != want:
+        raise AssertionError(f'{tag}: wrapper launches differ')
+    replay = profile['graph']
+    expected = _replay_expected(S, 1, mode, semantic)
+    if replay is None:
+        raise AssertionError(f'{tag}: the profiler recorded no kernel of a '
+                             'replayed step')
+    named = {k: round(v, 3) for k, v in replay[0].items()}
+    print(f'{tag}: kernels of a replayed step by torch.profiler {named} '
+          f'(expected {expected}), {replay[1]:.0f} kernels in all',
+          flush=True)
+    if named != expected:
+        raise AssertionError(f'{tag}: a replayed step launched other '
+                             'kernels')
+    print(f'{tag}: eager steps that each wait for their logs (the loop '
+          f'before the compiled step) {synced_ms:.2f} ms/step', flush=True)
+    return _graph_line(tag, e_ms, g_ms, profile, e_peak, g_peak,
+                       compiled.capture_seconds), totals
+
+
+def _graph_summary(row):
+    if row is None:
+        return 'eager steps by rule (train/step.py uncapturable)'
+    e_ms, g_ms, e_idle, g_idle, e_peak, g_peak, capture_s = row
+    return (f'eager {e_ms:.2f} / graphed {g_ms:.2f} ms/step, idle '
+            f'{e_idle} / {g_idle}, peak {e_peak:.2f} / {g_peak:.2f} GiB, '
+            f'capture {capture_s:.2f} s')
+
+
+def _synced_ms(trainer, batches):
+    """ms a step of eager `train_step`s, each fetching its logs."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in batches:
+        trainer.train_step(batch)
+    return 1000.0 * (time.perf_counter() - t0) / len(batches)
+
+
+def _idle(profile):
+    if profile is None:
+        return 'not measured'
+    _, _, busy, wall = profile
+    return f'{100 * (1 - busy / wall):.1f}%'
+
+
+def _graph_line(tag, e_ms, g_ms, profile, e_peak, g_peak, capture_s):
+    """Prints and returns the eager-against-graphed numbers of a path."""
+    print(f'{tag}: eager {e_ms:.2f} ms/step, graphed {g_ms:.2f} ms/step '
+          f'({e_ms / g_ms:.2f}x); device idle (profiled) eager '
+          f'{_idle(profile["eager"])}, graphed {_idle(profile["graph"])}; '
+          f'peak memory eager {e_peak:.2f} GiB, graphed {g_peak:.2f} GiB; '
+          f'capture {capture_s:.2f} s', flush=True)
+    return e_ms, g_ms, _idle(profile['eager']), _idle(profile['graph']), \
+        e_peak, g_peak, capture_s
+
+
+def _eager_vs_graph(tag, trainer, n=4):
+    """A trained Trainer's step both ways on its next batches: a group of
+    2 steps to warm (the graphed one captures again if the trainer was
+    closed), n timed, 2 profiled.  Returns _graph_line's numbers (the
+    capture seconds of the trainer's first capture) and the graphed
+    profile."""
+    batches = _host_batches(trainer, n + 4)
+    compiled, times = trainer.compiled, {}
+    if compiled is None:
+        raise AssertionError(f'{tag}: the trainer replays no graph')
+    capture_s = compiled.capture_seconds
+    for name in ('eager', 'graph'):
+        trainer.compiled = compiled if name == 'graph' else None
+        torch.cuda.reset_peak_memory_stats()  # the capture included
+        _run_groups(trainer, [batches[:2]])
+        _, ms = _timed_groups(trainer, [batches[2:2 + n]])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        times[name] = (ms, peak, _profile_groups(trainer, [batches[-2:]]))
+    trainer.compiled = compiled
+    profile = {k: v[2] for k, v in times.items()}
+    return _graph_line(tag, times['eager'][0], times['graph'][0], profile,
+                       times['eager'][1], times['graph'][1],
+                       capture_s) + (profile['graph'], )
+
+
+def phase_graph(data_dir, partnet_dir, tmp):
+    """The compiled step (train/step.py) on the flagship's dense slot wire,
+    host wire, chunked layout and unfused route, and the semantic
+    PN-Transformer's two wires: GRAPH_GROUPS x GRAPH_GROUP replayed steps
+    against as many eager steps from the same weights and generator
+    states (losses, parameters, Adam state, BN statistics bitwise; else
+    the largest relative difference printed and held under GRAPH_RTOL),
+    the wrapper launches of the traced bodies exactly, a replayed step's
+    kernels by torch.profiler, and eager against graphed step time,
+    device idle share, peak memory and capture seconds."""
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True).stdout.splitlines()[0].strip()
+    rows, totals = {}, {}
+    for label, path, opts, mode, S in GRAPH_RUNS:
+        rows[label], launches = _graph_run(
+            label, path, opts, mode, S,
+            partnet_dir if path == PARTNET_CFG else data_dir, tmp)
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+    print(f'graph ({smi}): ' + '; '.join(
+        f'{k} {_graph_summary(r)}' for k, r in rows.items()), flush=True)
     return totals
 
 
@@ -2765,6 +3186,7 @@ def main():
                       _timed(phase_families, data_dir, tmp),
                       _timed(phase_semantic, partnet_dir, tmp),
                       _timed(phase_encoders, data_dir, tmp),
+                      _timed(phase_graph, data_dir, partnet_dir, tmp),
                       _timed(phase_ddp, data_dir, tmp)):
             for k, v in phase.items():
                 launches[k] += v

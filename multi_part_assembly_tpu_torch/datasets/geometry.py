@@ -12,9 +12,13 @@ dataset and its single-shard slot collate), :427-486 (`unpack_parts`,
     ships only the piece slot of each packed part row, the part counts and
     a seed, and the card draws the points from resident tables.
 
-The JAX package's packed f16 wire, sharded wires and step grouping exist
-for the TPU's remote runtime and are not ported: under data parallelism
-each rank drives one device and collates its own shard (`DataLoader`).
+Step grouping (`exp.steps_per_call`) is the trainer's: a group's batches
+are taken one by one from this loader and each feeds one replay of the
+compiled step (train/step.py), so no stacked group batch exists here.  The
+JAX package's sharded wires serve a TPU mesh and are not ported: under
+data parallelism each rank drives one device and collates its own shard
+(`DataLoader`).  Its packed f16 geometric host wire (`data.wire_dtype`)
+is not ported yet: this host wire ships f32 clouds.
 """
 
 import math

@@ -28,7 +28,12 @@ def zero_pose(rot_type, dtype=torch.float32, device=None):
         rot_type)
     if rot is None:
         raise NotImplementedError(f'rotation {rot_type} is not supported')
-    return torch.tensor(rot + [0.0] * 3, dtype=dtype, device=device)
+    # filled on the device: a host constant cannot enter a captured graph
+    pose = torch.zeros(len(rot) + 3, dtype=dtype, device=device)
+    for i, v in enumerate(rot):
+        if v:
+            pose[i].fill_(v)
+    return pose
 
 
 def extract_part_feats(encoder, part_pcs, part_valids):

@@ -160,7 +160,8 @@ class DGCNN(nn.Module):
             per_i = s + k * wf  # sum_j z_ij of row i
             per_i2 = q + 2.0 * wf * s + k * wf * wf  # sum_j z_ij^2
             if edge_mask is None:
-                count = wf.new_tensor(float(B * N) * k)
+                count = torch.full((), float(B * N) * k, dtype=wf.dtype,
+                                   device=wf.device)
                 tot, tot2 = per_i.sum((0, 1)), per_i2.sum((0, 1))
             else:
                 mw = edge_mask.float()  # [B, 1, 1]

@@ -182,7 +182,8 @@ class MaskedBatchNorm(nn.Module):
         if mask is None:
             mean = xs.mean(dims)
             var = ((xs - mean)**2).mean(dims)
-            denom = xs.new_tensor(float(math.prod(x.shape[:-1])))
+            denom = torch.full((), float(math.prod(x.shape[:-1])),
+                               dtype=xs.dtype, device=xs.device)
         else:
             w = mask[..., None].float()
             fan = math.prod(xs.shape[:-1]) // math.prod(w.shape[:-1])
@@ -214,7 +215,8 @@ class MaskedBatchNorm(nn.Module):
     def _lean_moments(x, mask, sync=False):
         if mask is None:
             w = x.new_ones((), dtype=torch.float32)
-            count = w.new_tensor(float(math.prod(x.shape[:-1])))
+            count = torch.full((), float(math.prod(x.shape[:-1])),
+                               dtype=w.dtype, device=w.device)
         else:
             w = mask[..., None].float()
             fan = math.prod(x.shape[:-1]) // math.prod(w.shape[:-1])

@@ -85,7 +85,7 @@ def _fps(xyz, npoint):
     idxs = torch.zeros((B, npoint), dtype=torch.long, device=xyz.device)
     min_d = torch.full((B, N), 1e10, device=xyz.device)
     last = torch.zeros((B, ), dtype=torch.long, device=xyz.device)
-    neg = torch.tensor(-1.0, device=xyz.device)
+    neg = torch.full((), -1.0, device=xyz.device)
     for i in range(1, npoint):
         last_pt = xyz.gather(1, last[:, None, None].expand(B, 1, 3))
         d = ((xyz - last_pt)**2).sum(-1)  # [B, N]

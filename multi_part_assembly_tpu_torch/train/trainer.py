@@ -10,11 +10,23 @@ mirror.  Geometric batches come over the host wire or, with
 itself (JAX trainer.py:267-311 and :537-548); semantic (PartNet) batches
 over the host wire's packed f16 rows or, with `data.device_table`, as slots
 into a resident table of the split's clouds (JAX trainer.py:324-353 and
-:505-517).  One train step (JAX parallel/mesh.py:122-140) augments a
-geometric batch on the device (a PartNet batch carries its poses), runs
-`mon_loss`, takes its gradient and an Adam step at the scheduled lr.  The
-TPU runtime's execution kicks and host-to-device probe have no
-counterpart here.
+:505-517).  One train step (JAX parallel/mesh.py:122-140, train/step.py)
+augments a geometric batch on the device (a PartNet batch carries its
+poses), runs `mon_loss`, takes its gradient and an Adam step at the
+scheduled lr.
+
+Dispatch (JAX trainer.py:518-610, 686-790): on a CUDA device with one
+rank every train step is a replay of one captured CUDA graph
+(train/step.py `CompiledStep`); on the CPU, under several ranks, and for a
+config that `step.uncapturable` names, the same step runs eagerly.  The
+epoch loop never waits for the device between steps: it takes
+`exp.steps_per_call` batches from the loader (0: JAX's auto rule, 8 on a
+slot wire on the card, else 1), queues their steps back to back, keeps
+each step's log vector on the device, and writes the JSONL rows in one
+fetch every `LOG_FLUSH_STEPS` steps, at the end of an epoch and before a
+validation or a checkpoint.  The eval loop sums each batch's logs on the
+device and fetches them once a loop.  The TPU runtime's execution kicks
+and host-to-device probe have no counterpart here.
 
 Data parallelism (parallel/dist.py; JAX parallel/mesh.py, trainer.py:
 792-866): under several ranks each trains on its shard of the loader at
@@ -43,7 +55,8 @@ from ..models import build_model
 from ..parallel import dist
 from .checkpoint import CheckpointManager, load_state
 from .core import mon_loss
-from .state import build_optimizer, clip_gradients
+from .state import build_optimizer, set_lr
+from .step import CompiledStep, step_vector, steps_per_call, uncapturable
 
 __all__ = ['Trainer', 'JSONLLogger', 'WandbLogger', 'NullLogger',
            'build_logger', 'device_sampling_enabled', 'device_table_enabled',
@@ -205,25 +218,7 @@ def optimize_step(model, optimizer, cfg, data, generator=None):
     the optimizer's step at its groups' lr.  Returns the step's logs as
     floats, each the mean over the ranks (JAX parallel/mesh.py:122-140:
     the global batch's)."""
-    model.train()
-    loss, logs = mon_loss(model, data, cfg=cfg, training=True,
-                          generator=generator)
-    optimizer.zero_grad(set_to_none=True)
-    if loss.requires_grad:  # identity's loss needs no gradient
-        loss.backward()
-    # JAX differentiates every parameter: one the loss does not reach
-    # (identity's dummy, LSTM's stop-sign head) takes a zero gradient,
-    # and Adam counts the step for it as optax does
-    params = list(model.parameters())
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    dist.average_gradients(params)
-    clip_gradients(cfg, model)  # the global gradient, as JAX clips
-    optimizer.step()
-    keys = sorted(logs)
-    values = torch.stack([logs[k].detach().float() for k in keys])
-    values = dist.all_reduce_(values) / dist.world()
+    keys, values = step_vector(model, optimizer, cfg, data, generator)
     return dict(zip(keys, values.tolist()))  # syncs
 
 
@@ -232,7 +227,19 @@ class Trainer:
     that is absent raises, the CPU runs only when asked for.  Under several
     ranks a CUDA request means this rank's card (parallel/dist.py
     `rank_device`).  With `resume` it picks up from the newest checkpoint
-    under `ckp_dir/models`."""
+    under `ckp_dir/models`.
+
+    `train_epoch` replays the step's CUDA graph, `compiled` (captured at
+    the first step), or runs the step eagerly where `compiled` is None;
+    `train_step` is always one eager step that returns its logs.
+    `step_seconds` has one entry a step of `train_epoch`: the wall time of
+    the window of steps that ends in a synchronisation (a log flush, or
+    the capture's own step) divided by its steps, the host's data waits
+    inside it included."""
+
+    # steps whose log vectors stay on the device before one fetch (JAX
+    # trainer.py:686)
+    LOG_FLUSH_STEPS = 32
 
     def __init__(self, cfg, device, ckp_dir=None, resume=True, quiet=False):
         # fp32 means fp32: no TF32 in matmuls or cuDNN convolutions
@@ -249,16 +256,29 @@ class Trainer:
         self.model = build_model(cfg, self.device)
         dist.broadcast_module(self.model)
         self._build_loaders(cfg)
+        # one rank on the card: the optimizer is capturable even where a
+        # config's step runs eagerly, so that an eager step and a replay
+        # compute the same bits
+        on_card = self.device.type == 'cuda' and dist.world() == 1
         self.optimizer, self.lr_schedule = build_optimizer(
-            cfg, max(1, len(self.train_loader)), self.model)
+            cfg, max(1, len(self.train_loader)), self.model,
+            capturable=on_card)
+        self.compiled = CompiledStep(self._step_vector, self.model,
+                                     self.optimizer, self.generator) \
+            if on_card and uncapturable(cfg) is None else None
+        self.steps_per_call = steps_per_call(cfg, self.train_loader,
+                                             self.device)
         self.ckp_dir = ckp_dir or cfg.exp.get('ckp_dir', 'checkpoint/')
         os.makedirs(self.ckp_dir, exist_ok=True)
         self.logger = build_logger(cfg, self.ckp_dir, quiet=quiet)
         self.ckpt_mgr = CheckpointManager(os.path.join(self.ckp_dir,
                                                        'models'))
-        self.step = 0
+        self.step = 0  # the host's count of dispatched steps
         self.start_epoch = 0
-        self.step_seconds = []  # wall time of each train step, synchronised
+        self.step_seconds = []
+        self._log_buf = []  # (log vectors [G, M], steps, lrs, data wait)
+        self._log_keys = None
+        self._window = None  # (start time, steps) since the last sync
         self.metrics = {}  # the last validation's
         self.test_results = None
         self._vis_skip_said = False
@@ -287,17 +307,25 @@ class Trainer:
     # ------------------------------------------------------------------
     def _load_state(self, state):
         self.model.load_state_dict(state['model'])
+        # the groups keep this trainer's lr holder and capturable flag,
+        # whichever device wrote the checkpoint
+        own = [{k: g[k] for k in ('lr', 'capturable')}
+               for g in self.optimizer.param_groups]
         self.optimizer.load_state_dict(state['optimizer'])
         # torch keeps Adam's step counts on the CPU unless the optimizer is
         # capturable or fused; map_location moved them with the rest
-        for group in self.optimizer.param_groups:
-            if group.get('capturable') or group.get('fused'):
-                continue
+        for group, keep in zip(self.optimizer.param_groups, own):
+            group.update(keep)
             for p in group['params']:
                 st = self.optimizer.state.get(p, {})
                 if torch.is_tensor(st.get('step')):
-                    st['step'] = st['step'].cpu()
+                    on_device = group['capturable'] or group.get('fused')
+                    st['step'] = st['step'].to(p.device if on_device
+                                               else 'cpu')
         self.step = int(state['step'])
+        # the captured graph read the replaced optimizer state
+        if self.compiled is not None:
+            self.compiled.release()
 
     def _try_resume(self):
         latest = self.ckpt_mgr.latest_step()
@@ -311,9 +339,13 @@ class Trainer:
                   flush=True)
 
     def save_checkpoint(self, epoch, metrics):
+        self._flush_train_logs()
+        optimizer = self.optimizer.state_dict()
+        for group in optimizer['param_groups']:  # a copy of each group
+            if torch.is_tensor(group['lr']):
+                group['lr'] = float(group['lr'])
         self.ckpt_mgr.save(epoch, {
-            'model': self.model.state_dict(),
-            'optimizer': self.optimizer.state_dict(),
+            'model': self.model.state_dict(), 'optimizer': optimizer,
             'step': self.step, 'epoch': epoch}, metrics)
 
     def load_weights(self, path):
@@ -325,13 +357,11 @@ class Trainer:
     # ------------------------------------------------------------------
     # loops
     # ------------------------------------------------------------------
-    def _augment(self, batch, generator=None):
-        """A host batch -> the batch on the device, a geometric one
-        augmented, its rotations drawn from `generator` (default: the
-        trainer's).  A geometric slot-wire batch is sampled and expanded on
-        the device first; a PartNet batch's clouds are unpacked from the
-        host wire's rows or gathered from the resident table, and it is
-        not augmented (JAX trainer.py:339-358)."""
+    def _device_batch(self, batch):
+        """A host batch -> its tensors on the device, before augmentation.
+        A geometric slot-wire batch is sampled and expanded on the device; a
+        PartNet batch's clouds are unpacked from the host wire's rows or
+        gathered from the resident table (JAX trainer.py:339-358)."""
         if 'part_pcs__packed' in batch or 'part_slots' in batch:
             batch = dict(batch)
             ptable = batch.pop('__ptable__', None)
@@ -350,72 +380,171 @@ class Trainer:
             tables = batch.pop('__tables__')
             seed = int(batch.pop('sample_seed'))
             dev = _to_device(batch, self.device)
-            batch = sample_and_expand(
+            return sample_and_expand(
                 tables.table, tables.n_faces, dev['part_slots__packed'],
                 dev['part_counts'], seed,
                 n_points=int(self.cfg.data.num_pc_points),
                 max_parts=int(self.cfg.data.max_num_part),
                 data_keys=tuple(self.cfg.data.data_keys))
-        else:
-            batch = _to_device(batch, self.device)
+        return _to_device(batch, self.device)
+
+    def _augment_device(self, batch, generator=None):
+        """A device batch, a geometric one augmented, its rotations drawn
+        from `generator` (default: the trainer's); a PartNet batch carries
+        its poses and is returned as it is."""
+        if 'part_pcs_raw' not in batch:
+            return batch
+        batch = dict(batch)
         aug = augment_geometry_batch(
             batch.pop('part_pcs_raw'), batch['part_valids'],
             self.generator if generator is None else generator,
             rot_range=float(self.cfg.data.get('rot_range', -1.0)))
         return {**batch, **aug}
 
+    def _augment(self, batch, generator=None):
+        """A host batch -> the augmented batch on the device."""
+        return self._augment_device(self._device_batch(batch), generator)
+
+    def _step_vector(self, batch):
+        """The whole train step on a device batch, augmentation included:
+        the body that `CompiledStep` captures.  Returns the log vector."""
+        self._log_keys, values = step_vector(
+            self.model, self.optimizer, self.cfg,
+            self._augment_device(batch), self.generator)
+        return values
+
     def train_step(self, batch):
-        """One step on a host batch; returns the step's logs (floats)."""
+        """One eager step on a host batch; returns the step's logs (floats,
+        so it synchronises)."""
         lr = self.lr_schedule(self.step)
-        for group in self.optimizer.param_groups:
-            group['lr'] = lr
-        self.model.train()
-        data = self._augment(batch)
-        logs = optimize_step(self.model, self.optimizer, self.cfg, data,
-                             self.generator)
+        set_lr(self.optimizer, lr)
+        values = self._step_vector(self._device_batch(batch))
+        logs = dict(zip(self._log_keys, values.tolist()))  # syncs
         self.step += 1
         logs['lr'] = lr
         return logs
 
+    def _dispatch(self, batches, waits):
+        """Queue the steps of `batches` (host batches) back to back: one
+        group of replays, or eager steps, without waiting for the device,
+        their logs buffered.  A step that captures the graph synchronises
+        and is timed as a window of its own."""
+        rows, lrs = None, []
+        first = self.step
+        for g, batch in enumerate(batches):
+            lr = self.lr_schedule(self.step)
+            lrs.append(lr)
+            set_lr(self.optimizer, lr)
+            data = self._device_batch(batch)
+            capture = self.compiled is not None and \
+                self.compiled.needs_capture(data)
+            if capture:
+                self._close_window()
+            if self._window is None:
+                self._window = [time.perf_counter(), 0]
+            values = self._step_vector(data) if self.compiled is None \
+                else self.compiled(data)
+            if rows is None:
+                rows = values.new_empty((len(batches), values.shape[0]))
+            rows[g].copy_(values)
+            self.step += 1
+            self._window[1] += 1
+            if capture:
+                self._close_window()
+        steps = tuple(range(first + 1, self.step + 1))
+        self._log_buf.append((rows, steps, lrs, sum(waits)))
+
+    def _close_window(self):
+        """Synchronise and give each step of the open window its mean wall
+        time."""
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+        if self._window is not None and self._window[1]:
+            t0, n = self._window
+            self.step_seconds += [(time.perf_counter() - t0) / n] * n
+        self._window = None
+
+    def _buffered_steps(self):
+        return sum(len(steps) for _, steps, _, _ in self._log_buf)
+
+    def _flush_train_logs(self):
+        """Fetch every buffered step's logs in one copy, write one JSONL
+        row a step, and close the timing window (JAX trainer.py:700-743).
+        A group's data wait is spread over its steps.  Returns the last
+        step's logs, or None when nothing was buffered."""
+        if not self._log_buf:
+            self._close_window()
+            return None
+        mats = torch.cat([rows for rows, _, _, _ in self._log_buf])
+        table = mats.tolist()  # the one fetch: it synchronises
+        self._close_window()
+        last, i = None, 0
+        for _, steps, lrs, wait in self._log_buf:
+            for step_no, lr in zip(steps, lrs):
+                logs = dict(zip(self._log_keys, table[i]))
+                logs['lr'] = lr
+                logs['data_time'] = wait / len(steps)
+                self.logger.log({f'train/{k}': v for k, v in logs.items()},
+                                step=step_no)
+                last, i = logs, i + 1
+        self._log_buf.clear()
+        return last
+
     def train_epoch(self, epoch):
+        """One epoch of dispatch-only steps (JAX trainer.py:745-790):
+        `steps_per_call` batches are taken from the loader, then their
+        steps queued back to back; the tail of an epoch that does not fill
+        a group runs as single steps.  Logs are flushed every
+        `LOG_FLUSH_STEPS` steps and at the end.  Returns the last step's
+        logs (None for an empty epoch)."""
         self.train_loader.set_epoch(epoch)
-        logs = None
+        group, waits = [], []
         t_last = time.perf_counter()
         for batch in self.train_loader:
-            t_data = time.perf_counter() - t_last
-            t0 = time.perf_counter()
-            logs = self.train_step(batch)
-            self.step_seconds.append(time.perf_counter() - t0)
-            logs['data_time'] = t_data
-            self.logger.log({f'train/{k}': v for k, v in logs.items()},
-                            step=self.step)
+            waits.append(time.perf_counter() - t_last)
+            group.append(batch)
+            if len(group) == self.steps_per_call:
+                self._dispatch(group, waits)
+                group, waits = [], []
+                if self._buffered_steps() >= self.LOG_FLUSH_STEPS:
+                    self._flush_train_logs()
             t_last = time.perf_counter()
-        return logs
+        for batch, wait in zip(group, waits):  # the tail, step by step
+            self._dispatch([batch], [wait])
+        return self._flush_train_logs()
 
     @torch.no_grad()
     def _eval_loop(self, loader, prefix):
         """Batch-size weighted means of the per-element eval logs
-        (JAX trainer.py:792-854); under several ranks the sums and the
-        weight are all-reduced in f64, so every rank returns the same."""
+        (JAX trainer.py:792-854).  Each key's batch sum (f32, as before)
+        is added to a f64 vector on the device, fetched once a loop; under
+        several ranks the sums and the weight are all-reduced in f64 once,
+        so every rank returns the same."""
         self.model.eval()
-        sums, weight = {}, 0
+        keys, sums, weight = None, None, 0
         for batch in loader:
             data = self._augment(batch)
             _, logs = mon_loss(self.model, data, cfg=self.cfg,
                                training=False, reduce=False,
                                generator=self.generator)
-            for k, v in logs.items():
-                sums[k] = sums.get(k, 0.0) + float(v.sum())
+            keys = keys or list(logs)
+            vec = torch.stack([logs[k].sum() for k in keys]).double()
+            sums = vec if sums is None else sums + vec
             weight += data['part_valids'].shape[0]
+        keys = keys or []
+        total = torch.tensor([float(weight)], dtype=torch.float64,
+                             device=self.device)
+        if sums is not None:
+            total = torch.cat([sums, total])
         if dist.world() > 1:
-            keys = sorted(sums)
-            total = dist.all_reduce_(torch.tensor(
-                [sums[k] for k in keys] + [weight], dtype=torch.float64,
-                device=self.device)).tolist()
-            sums, weight = dict(zip(keys, total[:-1])), total[-1]
-        return {f'{prefix}/{k}': v / max(weight, 1) for k, v in sums.items()}
+            dist.all_reduce_(total)
+        total = total.tolist()  # the one fetch
+        weight = total[-1]
+        return {f'{prefix}/{k}': v / max(weight, 1)
+                for k, v in zip(keys, total[:-1])}
 
     def validate(self, epoch):
+        self._flush_train_logs()  # keeps the JSONL in step order
         metrics = self._eval_loop(self.val_loader, 'val')
         self.logger.log(metrics, step=self.step, echo=sorted(metrics))
         n_vis = self.cfg.exp.get('val_sample_vis', 0)
@@ -488,6 +617,7 @@ class Trainer:
 
     def test(self):
         """Evaluate on the val split as `test/*` (JAX trainer.py:937-944)."""
+        self._flush_train_logs()
         metrics = self._eval_loop(self.val_loader, 'test')
         if dist.rank() == 0:
             print('; '.join(f'{k}: {v:.6f}'
@@ -496,4 +626,8 @@ class Trainer:
         return metrics
 
     def close(self):
+        """Flush the logs, close the sink and free the captured graph."""
+        self._flush_train_logs()
+        if self.compiled is not None:
+            self.compiled.release()
         self.logger.close()

@@ -92,7 +92,9 @@ def quaternion_multiply(a, b):
 
 def quaternion_invert(quat):
     """Conjugate of a unit quaternion (JAX rotation.py:134-136)."""
-    return quat * quat.new_tensor([1.0, -1.0, -1.0, -1.0])
+    # (w, -x, -y, -z): the product with (1, -1, -1, -1), bit for bit, made
+    # on the device (a host constant cannot enter a captured CUDA graph)
+    return torch.cat([quat[..., :1], -quat[..., 1:]], dim=-1)
 
 
 def quaternion_apply(quat, point):

@@ -72,6 +72,7 @@ from multi_part_assembly_tpu_torch.models import build_model
 from multi_part_assembly_tpu_torch.utils import load_cfg_file
 import multi_part_assembly_tpu_torch.datasets
 import multi_part_assembly_tpu_torch.train.trainer
+import multi_part_assembly_tpu_torch.train.step
 import multi_part_assembly_tpu_torch.train.checkpoint
 import multi_part_assembly_tpu_torch.train.vis_utils
 import multi_part_assembly_tpu_torch.utils.misc
@@ -107,10 +108,11 @@ print('ok')
 
 
 def test_port_never_imports_jax():
-    """A fresh interpreter imports the port (data parallelism too) and its
-    scripts (the harness's too), loads the flagship config, builds the
-    model with each pose head (quat and 6D) and runs one CPU forward
-    without loading JAX, flax, optax, orbax or the JAX package."""
+    """A fresh interpreter imports the port (data parallelism and the
+    compiled step too) and its scripts (the harness's too), loads the
+    flagship config, builds the model with each pose head (quat and 6D)
+    and runs one CPU forward without loading JAX, flax, optax, orbax or
+    the JAX package."""
     proc = subprocess.run([sys.executable, '-c', _NO_JAX],
                           capture_output=True, text=True, timeout=240,
                           cwd=ROOT)

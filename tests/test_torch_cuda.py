@@ -673,3 +673,68 @@ def test_sync_bn_two_gloo_ranks_on_one_card(cuda, lean, tmp_path):
                            ('running_var', bn.running_var)):
             torch.testing.assert_close(r[name], want.cpu(), atol=1e-5,
                                        rtol=1e-5)
+
+
+def _graph_trainers(synth, tmp_path, opts):
+    """Two flagship Trainers at a small width on the card from the same
+    seed: one that replays the captured step, one that runs it eagerly."""
+    from multi_part_assembly_tpu_torch.train.trainer import Trainer
+    from multi_part_assembly_tpu_torch.utils import config_utils as TCFG
+    flagship = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), 'configs/pn_transformer/pn_transformer/'
+        'pn_transformer-32x1-cosine_400e-everyday.py')
+    trainers = []
+    for name in ('graph', 'eager'):
+        cfg = TCFG.load_cfg_file(flagship).merge_from_list([
+            'data.data_dir', synth, 'exp.num_epochs', '2',
+            'exp.val_every', '1', 'exp.val_sample_vis', '0',
+            'exp.batch_size', '2', 'exp.steps_per_call', '2',
+            'model.pc_feat_dim', '16', 'model.transformer_feat_dim', '32',
+            'model.transformer_heads', '4', 'model.transformer_layers', '2',
+            'data.max_num_part', '6', 'data.num_pc_points', '64', *opts])
+        cfg.freeze()
+        trainers.append(Trainer(cfg, 'cuda', ckp_dir=str(tmp_path / name),
+                                resume=False, quiet=True))
+    trainers[1].compiled = None
+    return trainers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('sampling', ['False', 'True'])
+def test_graph_replays_equal_eager_steps(cuda, tmp_path, sampling):
+    """Two epochs of 4 flagship steps at a small width, in groups of 2, as
+    replays of the captured CUDA graph and as eager steps from the same
+    weights and generator states (host wire and slot wire): parameters,
+    buffers, Adam state and every logged value bitwise equal; one capture,
+    every step a replay."""
+    import json
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), 'scripts'))
+    from make_synthetic_data import generate
+    os.environ['MPA_MESH_CACHE_DIR'] = str(tmp_path / 'mesh_cache')
+    synth = generate(str(tmp_path / 'data'), n_shapes=8, min_parts=2,
+                     max_parts=6, seed=0)
+    graph, eager = _graph_trainers(
+        synth, tmp_path, ['data.device_sampling', sampling])
+    rng = torch.cuda.get_rng_state()  # dropout's stream, shared
+    rows = []
+    for trainer in (graph, eager):
+        torch.cuda.set_rng_state(rng)
+        for epoch in range(2):
+            trainer.train_epoch(epoch)
+        trainer.close()
+        with open(os.path.join(trainer.ckp_dir, 'metrics.jsonl')) as f:
+            rows.append([{k: v for k, v in json.loads(line).items()
+                          if k != 'train/data_time'} for line in f])
+    assert graph.compiled.captures == 1 and graph.compiled.replays == 8
+    assert rows[0] == rows[1] and len(rows[0]) == 8
+    states = []
+    for trainer in (graph, eager):
+        state = list(trainer.model.state_dict().items())
+        for pid, st in sorted(trainer.optimizer.state_dict()['state']
+                              .items()):
+            state += [(f'opt.{pid}.{k}', v) for k, v in sorted(st.items())]
+        states.append(state)
+    assert [n for n, _ in states[0]] == [n for n, _ in states[1]]
+    for (name, a), (_, b) in zip(*states):
+        assert torch.equal(a, b), name
