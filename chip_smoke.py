@@ -77,7 +77,10 @@ Phases, each printing its own line(s); any failure exits non-zero:
      the launch counters and requires its route's kernels to have launched
      in training and in validation, and the other route's never; each
      gates the full val metric set and its one checkpoint, and prints the
-     checkpoint's save time and the val export's;
+     checkpoint's save time on the training thread, its writer's time and
+     the val export's.  Every host batch is placed on the loaders'
+     placement thread; the host-wire runs ship packed f16 rows, exactly K
+     of them, and each run prints its bytes a batch beside its data wait;
   6. resume: the flagship on the dense slot wire, fused route, 2 epochs
      with a validation and a checkpoint each (counters reset just before,
      read at the end): scripts/test_torch.py from the second checkpoint
@@ -157,13 +160,27 @@ Phases, each printing its own line(s); any failure exits non-zero:
      of a replayed step by torch.profiler (B1/B3's kernel 2 x S x T, B2
      and B4 S x T, L1 S x T, B8 4 x S x T on the unfused route); eager
      against graphed step time, device idle share, peak memory and capture
-     seconds, beside the card's name and power limit.
+     seconds, beside the card's name and power limit.  The first groups
+     place their batches on the training thread, so that the sampler
+     counts once a dispatched batch; the last group, timed and profiled,
+     takes the same batches as the loader's placement thread prepares
+     them in an epoch;
+ 12. placement: on the host wire and both slot-wire layouts, two train
+     batches prepared by the loader's placement thread (train/trainer.py
+     `DevicePlacement`: the copy, the expansion, B5/B6) against the same
+     host batches placed on the training thread, bitwise; the card's
+     expansion of the f16 rows against the CPU's, bitwise; B5/B6 launched
+     from the placement thread.  Then a graphed flagship trainer saves
+     with its write held back while it replays two more steps: the
+     checkpoint holds the state at the save, bitwise; the training
+     thread's save time and the writer's time are printed.
 Since the compiled step, every training run of phases 5-9 trains through
 the graphed trainer (one rank on the card): each checks that every train
 step was a replay of one capture; the launch counters count the traced
 step bodies, not replays, so the exact gates of phases 7-9 read T (or
 S x T) times the traced bodies, and torch.profiler counts the kernels of a
-replayed step; phases 7 and 9 time eager against graphed steps; the
+replayed step; phases 7 and 9 time eager against graphed steps on
+batches placed by the loader's placement thread; the
 resumed epochs of phases 6-8 run through the trainer's own (graphed)
 epoch loop.  Phase 10's two ranks run eagerly.
 The smoke prints its total wall time; the line before the last is a JSON
@@ -176,7 +193,9 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -1290,6 +1309,52 @@ def _check_replayed(tag, trainer):
           f'bodies traced); groups of {trainer.steps_per_call}', flush=True)
 
 
+def _wire_stats(batch):
+    """(bytes a host batch ships to the card, its packed f16 rows' shape
+    and their K when the batch is the host wire's, else None)."""
+    nbytes = sum(v.numel() * v.element_size() for v in batch.values()
+                 if torch.is_tensor(v))
+    rows = batch.get('part_pcs_raw__packed')
+    if rows is None:
+        return nbytes, None
+    return nbytes, (str(rows.dtype), tuple(rows.shape),
+                    int(batch['part_counts'].sum()))
+
+
+class _Wire:
+    """Records each host batch the trainer's placement stage receives
+    (train/trainer.py `device_batch`, looked up at each call), from
+    whichever thread runs it: its wire statistics and the thread's name."""
+
+    def __init__(self):
+        from multi_part_assembly_tpu_torch.train import trainer as TR
+        self.module, self.batches = TR, []
+
+    def __enter__(self):
+        self.real = self.module.device_batch
+
+        def recording(batch, cfg, device):
+            self.batches.append(_wire_stats(batch) + (
+                len(batch['part_counts']),
+                threading.current_thread().name))
+            return self.real(batch, cfg, device)
+
+        self.module.device_batch = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.module.device_batch = self.real
+
+    def train(self):
+        """The train batches' (bytes, host rows) (batch B; validation runs
+        2B), each placed on the loader's transform thread."""
+        out = [(n, rows) for n, rows, b, _ in self.batches if b == B]
+        where = {t for *_, t in self.batches}
+        if where != {'loader-transform'}:
+            raise AssertionError(f'host batches placed on {where}')
+        return out
+
+
 def _train_run(index, data_dir, tmp):
     """One flagship run through train_torch.main: three epochs and a
     validation, every launch counter reset just before it."""
@@ -1311,7 +1376,8 @@ def _train_run(index, data_dir, tmp):
     Trainer.validate = counted_validate
     C.set_fused_mode(mode)
     try:
-        with _Timed('save_checkpoint', '_export_val_vis') as timed:
+        with _Timed('save_checkpoint', '_export_val_vis') as timed, \
+                _Wire() as wire:
             torch.cuda.reset_peak_memory_stats()
             _reset_launches()
             t0 = time.perf_counter()
@@ -1355,8 +1421,26 @@ def _train_run(index, data_dir, tmp):
           f'part_acc {trainer.metrics["val/part_acc"]:.4f}, val loss '
           f'{trainer.metrics["val/loss"]:.5f}', flush=True)
     _check_metrics(tag, trainer.metrics)
+    # the wire: packed f16 rows, exactly K of them, on the host wire
+    sent = wire.train()
+    bad = [rows for _, rows in sent if layout is None and (
+        rows is None or rows[0] != 'torch.float16' or
+        rows[1][0] != rows[2] or rows[1][1:] != (N, 3))]
+    if not sent or bad or (layout is not None and any(
+            rows is not None for _, rows in sent)):
+        raise AssertionError(f'{tag}: wire batches {bad or sent[:2]}')
+    nbytes = sum(n for n, _ in sent) / len(sent)
+    print(f'{tag}: {len(sent)} train batches on the wire, '
+          f'{nbytes:.0f} bytes a batch (the f32 dense batch would be '
+          f'{B * P * N * 3 * 4} bytes)' + ('' if layout is not None else
+                                          f'; packed f16 rows, exactly K '
+                                          f'(K = {sent[0][1][2]}, ...)'),
+          flush=True)
     saved = trainer.ckpt_mgr.all_steps()
-    print(f'{tag}: checkpoint save {timed.ms("save_checkpoint")} ms, val '
+    writes = ', '.join(f'{1000 * t:.1f}'
+                       for t in trainer.ckpt_mgr.write_seconds)
+    print(f'{tag}: checkpoint save on the training thread '
+          f'{timed.ms("save_checkpoint")} ms, its writer {writes} ms; val '
           f'export of {trainer.cfg.exp.val_sample_vis} shapes a split '
           f'{timed.ms("_export_val_vis")} ms; checkpoints kept {saved}',
           flush=True)
@@ -1394,7 +1478,7 @@ def _train_run(index, data_dir, tmp):
                 raise AssertionError(
                     f'{tag}: {key} launched {launches[split][key]} times in '
                     f'{split}')
-    return totals, (ms, wait_ms, losses[0])
+    return totals, (ms, wait_ms, losses[0], nbytes)
 
 
 def phase_main(data_dir, tmp):
@@ -1405,8 +1489,10 @@ def phase_main(data_dir, tmp):
         for k, v in launches.items():
             totals[k] = totals.get(k, 0) + v
     print('main: ' + '; '.join(
-        f'{label} {ms:.2f} ms/step, data wait {wait:.3f} ms'
-        for (label, *_), (ms, wait, _) in zip(RUNS, times)), flush=True)
+        f'{label} {ms:.2f} ms/step, data wait {wait:.3f} ms, '
+        f'{nbytes:.0f} bytes a batch'
+        for (label, *_), (ms, wait, _, nbytes) in zip(RUNS, times)),
+        flush=True)
     fused, unfused = times[2][2], times[4][2]
     print(f'main: first-step train loss, dense layout: fused route '
           f'{fused:.7f}, unfused route {unfused:.7f} (rel '
@@ -1523,6 +1609,7 @@ def phase_resume(data_dir, tmp):
         cpu.load_weights(step_dir)
         cpu_differ = _differing(_state(cpu), _state(first))
         cpu.save_checkpoint(1, first.metrics)
+        cpu.ckpt_mgr.wait_until_finished()  # the save is asynchronous
         second.load_weights(os.path.join(tmp, 'cpu', 'models', '1'))
         back_differ = _differing(_state(second), _state(first))
         print(f'resume: card checkpoint loaded on the CPU, tensors not '
@@ -2539,14 +2626,26 @@ def _step_expected(S, T, mode, semantic, identity=False):
             'lap': n if semantic else 0}
 
 
-def _host_batches(trainer, n):
-    """The first n train batches, epoch after epoch, as the loader gives
-    them (host tensors and slot-wire handles; each may be used again)."""
+def _host_batches(trainer, n, placed=False):
+    """The first n train batches, epoch after epoch; each may be used
+    again.  Unless `placed`, as the loader collates them with its placement
+    stage off (host tensors and slot-wire handles): each step then places
+    its batch on the training thread, so that the sampler counts once a
+    dispatched batch.  With `placed`, as `train_epoch` takes them: placed
+    on the card by the loader's placement thread, so that a step only
+    waits on the batch's event, and a timed step holds no placement."""
+    loader = trainer.train_loader
+    transform = loader.transform
+    if not placed:
+        loader.transform = None
     out, epoch = [], 0
-    while len(out) < n:
-        trainer.train_loader.set_epoch(epoch)
-        out += list(trainer.train_loader)
-        epoch += 1
+    try:
+        while len(out) < n:
+            loader.set_epoch(epoch)
+            out += list(loader)
+            epoch += 1
+    finally:
+        loader.transform = transform
     return out[:n]
 
 
@@ -2642,10 +2741,13 @@ def _graph_run(label, path, opts, mode, S, data_dir, tmp):
                                  f'graph in groups of {GRAPH_GROUP}')
         batches = _host_batches(graph, GRAPH_GROUP * GRAPH_GROUPS)
         # the first step alone (its state is compared on its own), then
-        # the rest of the first group, then whole groups, the last timed
+        # the rest of the first group, then whole groups; the last is
+        # timed and profiled on the same batches placed as in an epoch
         groups = [batches[:1], batches[1:GRAPH_GROUP]] + [
             batches[i:i + GRAPH_GROUP]
             for i in range(GRAPH_GROUP, len(batches), GRAPH_GROUP)]
+        groups[-1] = _host_batches(graph, len(batches),
+                                   placed=True)[-GRAPH_GROUP:]
         rng = torch.cuda.get_rng_state()  # dropout's stream
         out, totals = {}, {}
         for name, trainer in (('graph', graph), ('eager', eager)):
@@ -2776,7 +2878,7 @@ def _eager_vs_graph(tag, trainer, n=4):
     closed), n timed, 2 profiled.  Returns _graph_line's numbers (the
     capture seconds of the trainer's first capture) and the graphed
     profile."""
-    batches = _host_batches(trainer, n + 4)
+    batches = _host_batches(trainer, n + 4, placed=True)
     compiled, times = trainer.compiled, {}
     if compiled is None:
         raise AssertionError(f'{tag}: the trainer replays no graph')
@@ -2828,6 +2930,218 @@ def phase_graph(data_dir, partnet_dir, tmp):
 DDP_WORLD = 2
 DDP_LABEL = 'gloo, 2 ranks sharing one card'
 DDP_TIMEOUT = 300  # seconds the ranks may take, imports included
+
+
+def _tensors_equal(got, want):
+    """Keys whose tensors are not bitwise equal (dtype, shape and device
+    type included) in two device batches."""
+    if set(got) != set(want):
+        return ['<keys>']
+    return [k for k, v in want.items()
+            if got[k].dtype != v.dtype or got[k].device != v.device or
+            not torch.equal(got[k], v)]
+
+
+def _saved_state(path):
+    """A checkpoint's tensors as _state lists them."""
+    from multi_part_assembly_tpu_torch.train.checkpoint import load_state
+    state = load_state(path, 'cpu')
+    out = list(state['model'].items())
+    for pid, st in sorted(state['optimizer']['state'].items()):
+        out += [(f'opt.{pid}.{k}', v) for k, v in sorted(st.items())]
+    return out
+
+
+PLACEMENT_WIRES = [
+    ('host wire', ['data.device_sampling', 'False'], None),
+    ('dense layout', DENSE, 'sample_dense'),
+    ('chunked layout', ['data.device_sampling', 'True',
+                        'data.device_table_layout', 'chunked'],
+     'sample_chunked'),
+]
+
+
+def _placement_wire(label, opts, sampler, data_dir, trainer=None):
+    """Two train batches placed by the loader's placement stage against the
+    same host batches placed on this thread: bitwise, the card's expansion
+    of the host wire's f16 rows against the CPU's too; which threads
+    launched the sampler.  The loader is `trainer`'s when given, else one
+    built from `opts`."""
+    import train_torch
+    from multi_part_assembly_tpu_torch.datasets import build_dataloader
+    from multi_part_assembly_tpu_torch.datasets.geometry import (
+        enable_device_sampling, expand_geometry_batch)
+    from multi_part_assembly_tpu_torch.train import trainer as TR
+    tag = f'placement[{label}]'
+    device = torch.device('cuda')
+    if trainer is not None:
+        cfg, loader, consumer = trainer.cfg, trainer.train_loader, trainer
+    else:
+        cfg = train_torch.build_cfg(train_torch.parse_args([
+            '--cfg_file', FLAGSHIP_CFG, '--opts', 'data.data_dir', data_dir,
+            *opts]))
+        loader, _ = build_dataloader(cfg)
+        if sampler is not None and \
+                enable_device_sampling(loader, cfg, device) is None:
+            raise AssertionError(f'{tag}: no sampling tables')
+        consumer = types.SimpleNamespace(cfg=cfg, device=device)
+    transform = loader.transform or TR.DevicePlacement(cfg, device)
+    launched = []
+    real = {name: getattr(DS, name)
+            for name in ('sample_dense_cuda', 'sample_chunked_cuda')}
+
+    def spy(name, fn):
+        def counted(*args, **kwargs):
+            launched.append((name, threading.current_thread().name))
+            return fn(*args, **kwargs)
+        return counted
+
+    for name, fn in real.items():
+        setattr(DS, name, spy(name, fn))
+    try:
+        loader.set_epoch(0)
+        loader.transform = None
+        batches = iter(loader)
+        hosts = [next(batches) for _ in range(2)]
+        batches.close()
+        loader.transform = transform
+        batches = iter(loader)
+        placed = [TR.Trainer._device_batch(consumer, next(batches))
+                  for _ in range(2)]
+        batches.close()
+        on_thread = list(launched)
+        inline = [TR.Trainer._device_batch(consumer, h) for h in hosts]
+        torch.cuda.synchronize()
+        inline_launches = launched[len(on_thread):]
+    finally:
+        for name, fn in real.items():
+            setattr(DS, name, fn)
+    differ = [_tensors_equal(p, i) for p, i in zip(placed, inline)]
+    threads = sorted({t for _, t in on_thread})
+    print(f'{tag}: 2 batches from the placement thread against the same '
+          f'host batches placed on the training thread: keys not bitwise '
+          f'equal {differ}; sampler launches from the placement stage '
+          f'{len(on_thread)} on {threads}, inline {len(inline_launches)}',
+          flush=True)
+    if any(differ):
+        raise AssertionError(f'{tag}: placed batches differ')
+    if sampler is None:
+        if launched:
+            raise AssertionError(f'{tag}: the host wire sampled on the '
+                                 'card')
+        for h, p in zip(hosts, placed):
+            rows = h['part_pcs_raw__packed']
+            if rows.dtype != torch.float16 or \
+                    rows.shape[0] != int(h['part_counts'].sum()):
+                raise AssertionError(f'{tag}: host rows {rows.dtype} '
+                                     f'{tuple(rows.shape)}')
+            cpu = expand_geometry_batch(
+                rows, h['part_counts'], max_parts=P,
+                data_keys=tuple(cfg.data.data_keys))
+            got = {k: v.cpu() for k, v in p.items()}
+            if _tensors_equal(got, cpu):
+                raise AssertionError(f'{tag}: the card\'s expansion differs '
+                                     f'from the CPU\'s in '
+                                     f'{_tensors_equal(got, cpu)}')
+        print(f'{tag}: the card\'s expansion of the f16 rows bitwise the '
+              f'CPU\'s', flush=True)
+    elif len(on_thread) < 2 or threads != ['loader-transform'] or \
+            {n for n, _ in launched} != {f'{sampler}_cuda'}:
+        raise AssertionError(f'{tag}: sampler launches {launched}')
+
+
+def _held_save(monkeypatch_module):
+    """Holds the checkpoint writer's torch.save until the event returned
+    is set; returns (event, restore)."""
+    go = threading.Event()
+    real = monkeypatch_module.torch.save
+
+    def held(obj, path):
+        if not go.wait(120):
+            raise TimeoutError('the held checkpoint write was never '
+                               'released')
+        real(obj, path)
+
+    monkeypatch_module.torch.save = held
+    return go, lambda: setattr(monkeypatch_module.torch, 'save', real)
+
+
+def _graphed_save(trainer):
+    """A graphed flagship trainer: a save whose write is held while the
+    trainer replays two more steps, the checkpoint bitwise the state at the
+    save; then saves timed on the training thread, and their writer's
+    time."""
+    from multi_part_assembly_tpu_torch.train import checkpoint as CK
+    tag = 'placement[async save]'
+    trainer.train_loader.set_epoch(0)
+    batches = iter(trainer.train_loader)
+    trainer._dispatch([next(batches), next(batches)], [0.0, 0.0])
+    trainer._flush_train_logs()
+    at_save = _state(trainer)
+    go, restore = _held_save(CK)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.save_checkpoint(0, {'val/part_acc': 0.5})
+        first_ms = 1000 * (time.perf_counter() - t0)
+        writing = trainer.ckpt_mgr._writer.is_alive()
+        trainer._dispatch([next(batches), next(batches)], [0.0, 0.0])
+        trainer._flush_train_logs()  # the replays are done
+        after = _state(trainer)
+        on_disk = os.path.isdir(os.path.join(trainer.ckpt_mgr.directory,
+                                             '0'))
+    finally:
+        go.set()
+        restore()
+    trainer.ckpt_mgr.wait_until_finished()
+    batches.close()
+    saved = _saved_state(os.path.join(trainer.ckpt_mgr.directory, '0'))
+    differ, moved = _differing(saved, at_save), _differing(after, at_save)
+    print(f'{tag}: a save returned in {first_ms:.2f} ms (its pinned buffer '
+          f'allocated) with its write pending {writing}, on '
+          f'disk after 2 more graphed steps {on_disk}; the checkpoint\'s '
+          f'tensors not bitwise the state at the save {differ}; tensors '
+          f'the 2 steps changed {len(moved)} of {len(after)}', flush=True)
+    if not writing or on_disk or differ or not moved or \
+            trainer.compiled is None or trainer.compiled.captures != 1:
+        raise AssertionError(f'{tag}: the save did not overlap the steps '
+                             'or wrote another state')
+    times = []
+    for epoch in (1, 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.save_checkpoint(epoch, {'val/part_acc': 0.5})
+        returned = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        copied = time.perf_counter() - t0
+        trainer.ckpt_mgr.wait_until_finished()
+        times.append((returned, copied, trainer.ckpt_mgr.write_seconds[-1]))
+    trainer.close()
+    print(f'{tag}: the training thread\'s save (returned; with its copy to '
+          f'the host done) ' + ', '.join(
+              f'{1000 * r:.2f} ms; {1000 * c:.2f} ms' for r, c, _ in times) +
+          '; the writer\'s ' + ', '.join(f'{1000 * w:.1f} ms'
+                                         for *_, w in times), flush=True)
+    return times
+
+
+def phase_placement(data_dir, tmp):
+    """The loader's placement stage (train/trainer.py `DevicePlacement`) on
+    the host wire and both slot-wire layouts, the dense one a graphed
+    flagship trainer's, and the asynchronous save beside that trainer's
+    graphed steps."""
+    import train_torch
+    from multi_part_assembly_tpu_torch.train.trainer import Trainer
+    run_dir = os.path.join(tmp, 'placement')
+    cfg = train_torch.build_cfg(train_torch.parse_args([
+        '--cfg_file', FLAGSHIP_CFG, '--ckp_dir', run_dir, '--opts',
+        'data.data_dir', data_dir, 'exp.val_sample_vis', '0', *DENSE]))
+    trainer = Trainer(cfg, 'cuda', ckp_dir=run_dir, resume=False,
+                      quiet=True)
+    for label, opts, sampler in PLACEMENT_WIRES:
+        _placement_wire(label, opts, sampler, data_dir,
+                        trainer if opts is DENSE else None)
+    return _graphed_save(trainer)
 
 
 def _ddp_step_cfg(sync_bn):
@@ -3182,6 +3496,7 @@ def main():
         _timed(phase_semantic_slice, partnet_dir)
         repulsion_launches = _timed(phase_repulsion)
         launches = _timed(phase_main, data_dir, tmp)
+        _timed(phase_placement, data_dir, tmp)
         for phase in (_timed(phase_resume, data_dir, tmp),
                       _timed(phase_families, data_dir, tmp),
                       _timed(phase_semantic, partnet_dir, tmp),

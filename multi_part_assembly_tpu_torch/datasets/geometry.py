@@ -1,24 +1,34 @@
-"""Breaking-Bad geometric-assembly data: host dataset, loader, the slot
-wire's expansion, and the on-device augmentation.
+"""Breaking-Bad geometric-assembly data: host dataset, loader, the wires'
+expansion, and the on-device augmentation.
 
-Port of multi_part_assembly_tpu/datasets/geometry.py:51-244 (the host
-dataset and its single-shard slot collate), :427-486 (`unpack_parts`,
-`expand_geometry_batch`), :563-627 (`augment_geometry_batch`) and :630-661
-(`enable_device_sampling`).  Two wires:
+Port of multi_part_assembly_tpu/datasets/geometry.py:51-313 (the host
+dataset and its single-shard collates), :427-486 (`unpack_parts`,
+`expand_geometry_batch`), :563-627 (`augment_geometry_batch`), :630-701
+(`enable_device_sampling`, the loaders) and of datasets/loader.py (the
+`DataLoader`).  Two wires, each collating whole batches in one call
+(`collate_batch`):
 
-  * the host wire: each batch is f32 [B, P, N, 3] raw part clouds sampled
-    on the host, collated into pinned memory and copied to the card;
+  * the host wire: the batch's valid part clouds sampled on the host in
+    one native call, straight into packed rows of `data.wire_dtype`
+    (default float16, the JAX package's default; 'float32' ships them
+    unrounded), written into pinned memory when a card is present.  The
+    card upcasts the rows to f32 and expands them into the dense batch
+    (`expand_geometry_batch`);
   * the slot wire (device sampling, datasets/device_sampler.py): the host
     ships only the piece slot of each packed part row, the part counts and
     a seed, and the card draws the points from resident tables.
+
+`__getitem__` stays, a sample's dense f32 item.  The JAX loader's
+per-item path (`batch_collate=False` over an `exp.num_workers` pool) serves
+several devices in one process; each rank of the port drives one device,
+so its loader always collates whole batches and has no such path.
 
 Step grouping (`exp.steps_per_call`) is the trainer's: a group's batches
 are taken one by one from this loader and each feeds one replay of the
 compiled step (train/step.py), so no stacked group batch exists here.  The
 JAX package's sharded wires serve a TPU mesh and are not ported: under
 data parallelism each rank drives one device and collates its own shard
-(`DataLoader`).  Its packed f16 geometric host wire (`data.wire_dtype`)
-is not ported yet: this host wire ships f32 clouds.
+(`DataLoader`).
 """
 
 import math
@@ -37,10 +47,10 @@ from .mesh_io import MeshSampler
 
 __all__ = ['GeometryPartDataset', 'DataLoader', 'augment_geometry_batch',
            'unpack_parts', 'expand_geometry_batch', 'enable_device_sampling',
-           'build_geometry_dataloader']
+           'build_geometry_dataloader', 'wire_array']
 
 _MESH_EXTS = ('.obj', '.off', '.ply', '.stl')
-_PREFETCH = 2  # batches the loader's producer thread keeps ready
+_PREFETCH = 2  # batches each stage of the loader keeps ready
 
 
 def _mesh_names(folder):
@@ -48,15 +58,31 @@ def _mesh_names(folder):
                   if f.lower().endswith(_MESH_EXTS))
 
 
+_TORCH_DTYPES = {np.dtype(np.float16): torch.float16,
+                 np.dtype(np.float32): torch.float32}
+
+
+def wire_array(shape, dtype):
+    """An empty numpy array for a host-wire buffer: the view of a pinned
+    tensor when a card is present, so that the copy to the card reads it
+    in place and `_to_tensors` takes the tensor back without a copy."""
+    if torch.cuda.is_available():
+        return torch.empty(shape, dtype=_TORCH_DTYPES[np.dtype(dtype)],
+                           pin_memory=True).numpy()
+    return np.empty(shape, dtype)
+
+
 class GeometryPartDataset:
     """Fracture-directory walk, part-count filter and per-epoch surface
     sampling (JAX geometry.py:51-174).  Items are numpy dicts:
     part_pcs_raw [P, N, 3] f32 (zero-padded), part_valids [P] f32, empty
-    part/instance labels, the `data_keys` extras and data_id."""
+    part/instance labels, the `data_keys` extras and data_id.
+    `wire_dtype` (float16 or float32) is the host wire's row type."""
 
     def __init__(self, data_dir, data_fn, data_keys, category='',
                  num_points=1000, min_num_part=2, max_num_part=20,
-                 shuffle_parts=False, overfit=-1, sampler=None):
+                 shuffle_parts=False, overfit=-1, sampler=None,
+                 wire_dtype='float16'):
         self.category = category if category.lower() != 'all' else ''
         self.data_dir = data_dir
         self.num_points = num_points
@@ -64,6 +90,13 @@ class GeometryPartDataset:
         self.max_num_part = max_num_part
         self.shuffle_parts = shuffle_parts
         self.data_keys = tuple(data_keys)
+        # the native sampler rounds on store (the same sample stream), so
+        # an f16 row is f16 of the f32 row: at most 2.4e-4 off at unit
+        # scale (JAX geometry.py:72-78)
+        self.wire_dtype = np.dtype(wire_dtype)
+        if self.wire_dtype not in _TORCH_DTYPES:
+            raise ValueError(f'data.wire_dtype: float16 or float32, got '
+                             f'{wire_dtype!r}')
         self.sampler = sampler or MeshSampler()
         self.data_list = self._read_data(data_fn)
         if overfit > 0:
@@ -180,44 +213,82 @@ class GeometryPartDataset:
 
     def collate_batch(self, indices):
         """One batch of numpy arrays: the slot wire once sampling tables
-        are set (JAX geometry.py:290-291), else the items stacked."""
+        are set (JAX geometry.py:290-291), else the host wire (JAX
+        geometry.py:273-313 at one shard): the batch's K part meshes
+        sampled in ONE native call, mesh i of sample b with the seed
+        `epoch_seed + index * 64 + i` of its item, straight into
+        `part_pcs_raw__packed [K, N, 3]` of `wire_dtype` (pinned memory
+        when a card is present), beside `part_counts [B] int32` and
+        `data_id`.  Everything else the step needs derives on the device
+        from the counts (`expand_geometry_batch`).
+
+        Exactly K rows are shipped.  The JAX package pads K up to one of 8
+        buckets (`_kpad`) to bound its jit shapes; the port expands outside
+        the captured step, so it has no use for them."""
         if self._device_tables is not None:
             return self._collate_slots(indices)
-        return _stack_items([self[i] for i in indices])
-
-
-def _stack_items(items):
-    return {k: np.stack([np.asarray(it[k]) for it in items])
-            for k in items[0]}
+        paths, seeds, counts = [], [], []
+        for index in indices:
+            files = self._mesh_files(index)
+            counts.append(len(files))
+            paths += files
+            seeds += [self._epoch_seed + int(index) * 64 + i
+                      for i in range(len(files))]
+        packed = wire_array((len(paths), self.num_points, 3), self.wire_dtype)
+        self.sampler.sample_batch(paths, self.num_points, seeds, out=packed)
+        return {
+            'part_pcs_raw__packed': packed,
+            'part_counts': np.asarray(counts, np.int32),
+            'data_id': np.asarray(indices, np.int64),
+        }
 
 
 def _to_tensors(batch, pin):
     """numpy values -> CPU tensors (pinned when `pin`); other values, such
-    as the slot wire's tables, pass through."""
+    as the slot wire's tables, pass through.  A view of a pinned tensor
+    (`wire_array`) gives back that tensor, uncopied: its storage is the
+    pinned block, which the caching host allocator keeps from reuse until
+    the copies that read it are done."""
     out = {}
     for k, v in batch.items():
         if isinstance(v, (np.ndarray, np.generic)):
-            v = torch.from_numpy(np.asarray(v))
-            if pin:
-                v = v.pin_memory()
+            base = getattr(v, 'base', None)
+            if pin and isinstance(base, torch.Tensor) and \
+                    base.is_pinned() and base.shape == v.shape and \
+                    base.data_ptr() == v.ctypes.data:
+                v = base
+            else:
+                v = torch.from_numpy(np.asarray(v))
+                if pin:
+                    v = v.pin_memory()
         out[k] = v
     return out
 
 
 class DataLoader:
     """Batches of a dataset as dicts of CPU tensors (pinned when a card is
-    present), collated by one producer thread that stays _PREFETCH batches
-    ahead of the consumer.  The order is JAX's (datasets/loader.py:73-85):
-    `np.random.default_rng(seed + epoch)` shuffles arange(n) in place, and
-    rank r of `world` takes order[r::world], cut to n // world indices, so
-    every rank runs the same number of steps.  `rank` and `world` default
-    to the process group's (parallel/dist.py).  The dataset collates whole
-    batches itself with `collate_batch(indices)` (JAX datasets/loader.py
-    `batch_collate`), and so chooses the wire: host clouds, or piece slots
-    once device sampling is enabled."""
+    present), made ahead of the consumer by producer threads (JAX
+    datasets/loader.py:20-220).
+
+    The order is JAX's (loader.py:73-85): `np.random.default_rng(seed +
+    epoch)` shuffles arange(n) in place, and rank r of `world` takes
+    order[r::world], cut to n // world indices, so every rank runs the same
+    number of steps.  `rank` and `world` default to the process group's
+    (parallel/dist.py).
+
+    The dataset collates each batch whole (`collate_batch(indices)`, JAX
+    `batch_collate`) and so chooses the wire: packed host rows, or slots
+    once device tables are set.
+
+    `transform`, when set, is a second producer stage (loader.py:149-208):
+    one thread collates, a second applies the transform to each batch (the
+    trainer's device placement, train/trainer.py `DevicePlacement`), each
+    keeping _PREFETCH batches ready.  Both stop when the consumer
+    abandons the iterator, which joins them; an exception in either is
+    raised in the consumer."""
 
     def __init__(self, dataset, batch_size, shuffle=False, drop_last=False,
-                 seed=0, rank=None, world=None):
+                 seed=0, rank=None, world=None, transform=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -226,6 +297,7 @@ class DataLoader:
         self.epoch = 0
         self.rank = dist.rank() if rank is None else int(rank)
         self.world = dist.world() if world is None else int(world)
+        self.transform = transform
 
     def __len__(self):
         n = len(self.dataset) // self.world  # this rank's shard
@@ -251,32 +323,61 @@ class DataLoader:
 
     def __iter__(self):
         pin = torch.cuda.is_available()
-        out_q = queue.Queue(maxsize=_PREFETCH)
         stop = threading.Event()
         done = object()
+        out_q = queue.Queue(maxsize=_PREFETCH)
 
-        def put(item):
+        def put(q, item):
+            """Stop-aware put: False once the consumer has gone."""
             while not stop.is_set():
                 try:
-                    out_q.put(item, timeout=0.1)
-                    return
+                    q.put(item, timeout=0.1)
+                    return True
                 except queue.Full:
                     continue
+            return False
 
-        def produce():
+        def collate(q):
             try:
                 for idx in self._batches():
                     if stop.is_set():
                         return
                     batch = self.dataset.collate_batch([int(i) for i in idx])
-                    put(_to_tensors(batch, pin))
+                    if not put(q, _to_tensors(batch, pin)):
+                        return
             except Exception as e:  # re-raised in the consumer
-                put(e)
-            put(done)
+                put(q, e)
+                return
+            put(q, done)
 
-        worker = threading.Thread(target=produce, daemon=True,
-                                  name='geometry-loader')
-        worker.start()
+        def transform(in_q):
+            while not stop.is_set():
+                try:
+                    item = in_q.get(timeout=0.1)
+                except queue.Empty:
+                    continue
+                if stop.is_set():
+                    return
+                if item is not done and not isinstance(item, Exception):
+                    try:
+                        item = self.transform(item)
+                    except Exception as e:  # re-raised in the consumer
+                        item = e
+                if not put(out_q, item) or item is done or \
+                        isinstance(item, Exception):
+                    return
+
+        queues = [out_q]
+        if self.transform is None:
+            stages = [(collate, out_q)]
+        else:
+            queues.append(queue.Queue(maxsize=_PREFETCH))
+            stages = [(collate, queues[1]), (transform, queues[1])]
+        threads = [threading.Thread(target=fn, args=(q, ), daemon=True,
+                                    name=f'loader-{fn.__name__}')
+                   for fn, q in stages]
+        for t in threads:
+            t.start()
         try:
             while True:
                 item = out_q.get()
@@ -287,7 +388,14 @@ class DataLoader:
                 yield item
         finally:
             stop.set()
-            worker.join()
+            for q in queues:  # wakes a stage blocked on a full queue
+                try:
+                    while True:
+                        q.get_nowait()
+                except queue.Empty:
+                    pass
+            for t in threads:
+                t.join()
 
 
 def unpack_parts(part_pcs_packed, pack_index, part_valids):
@@ -301,10 +409,11 @@ def unpack_parts(part_pcs_packed, pack_index, part_valids):
 
 def expand_geometry_batch(part_pcs_packed, part_counts, max_parts,
                           data_keys=('part_ids', 'valid_matrix')):
-    """Packed rows [K, N, 3] + part counts [B] -> the full dense batch, on
-    their device (JAX geometry.py:449-486): part_valids, the row index,
-    part_ids, valid_matrix and the empty labels derive from the counts.
-    Valid parts are a prefix of the part axis."""
+    """Packed rows [K, N, 3] (f16 or f32) + part counts [B] -> the full
+    dense batch, on their device (JAX geometry.py:449-486): the rows
+    upcast to f32 (exact), then part_valids, the row index, part_ids,
+    valid_matrix and the empty labels derive from the counts.  Valid parts
+    are a prefix of the part axis."""
     B = part_counts.shape[0]
     P = max_parts
     device = part_counts.device
@@ -315,7 +424,8 @@ def expand_geometry_batch(part_pcs_packed, part_counts, max_parts,
     offsets = torch.cumsum(counts, 0) - counts               # [B]
     pack_index = torch.where(mask, offsets[:, None] + row, 0)
     batch = {
-        'part_pcs_raw': unpack_parts(part_pcs_packed, pack_index, valids),
+        'part_pcs_raw': unpack_parts(part_pcs_packed.float(), pack_index,
+                                     valids),
         'part_valids': valids,
         'instance_label': torch.zeros((B, P, 0), device=device),
         'part_label': torch.zeros((B, P, 0), device=device),
@@ -400,7 +510,9 @@ def enable_device_sampling(loader, cfg, device):
 
 def build_geometry_dataloader(cfg, sampler=None):
     """Train and val loaders (JAX geometry.py:664-701): the train split
-    shuffles and drops the last partial batch; val runs 2x batch."""
+    shuffles and drops the last partial batch; val runs 2x batch.  Both
+    collate whole batches, on the host wire in `data.wire_dtype` (default
+    float16)."""
     common = dict(
         data_dir=cfg.data.data_dir,
         data_keys=cfg.data.data_keys,
@@ -410,6 +522,7 @@ def build_geometry_dataloader(cfg, sampler=None):
         max_num_part=cfg.data.max_num_part,
         overfit=cfg.data.overfit,
         sampler=sampler,
+        wire_dtype=cfg.data.get('wire_dtype', 'float16'),
     )
     train_set = GeometryPartDataset(
         data_fn=cfg.data.data_fn.format('train'),

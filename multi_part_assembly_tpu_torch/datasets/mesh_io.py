@@ -17,7 +17,7 @@ import threading
 import numpy as np
 
 __all__ = ['MeshSampler', 'load_obj_numpy', 'sample_surface_numpy',
-           'mesh_cache_path']
+           'mesh_cache_path', 'f32_to_f16']
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), 'native')
@@ -70,6 +70,15 @@ def _get_lib():
             ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int,
             ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_float),
             ctypes.c_int]
+        lib.mpa_sample_batch_f16.restype = ctypes.c_int
+        lib.mpa_sample_batch_f16.argtypes = [
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint16),
+            ctypes.c_int]
+        lib.mpa_f32_to_f16.restype = None
+        lib.mpa_f32_to_f16.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint16),
+            ctypes.c_int64]
         lib.mpa_load_mesh_cached.restype = ctypes.c_int64
         lib.mpa_load_mesh_cached.argtypes = [ctypes.c_char_p,
                                              ctypes.c_char_p]
@@ -83,6 +92,27 @@ def _get_lib():
             ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float)]
         _lib = lib
         return _lib
+
+
+def f32_to_f16(src, dst):
+    """Convert a C-contiguous f32 array into the f16 array `dst` of the same
+    shape, rounding to nearest even: one vectorised native pass, or numpy's
+    `astype` (the same rounding, so the same bits) without the library."""
+    if src.dtype != np.float32 or dst.dtype != np.float16 or \
+            src.shape != dst.shape or not src.flags['C_CONTIGUOUS'] or \
+            not dst.flags['C_CONTIGUOUS']:
+        raise ValueError(
+            f'f32_to_f16: expected C-contiguous f32 -> f16 of one shape, got '
+            f'{src.dtype}{src.shape} -> {dst.dtype}{dst.shape}')
+    lib = _get_lib()
+    if lib is not None:
+        lib.mpa_f32_to_f16(
+            src.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            dst.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
+            ctypes.c_int64(src.size))
+    else:
+        np.copyto(dst, src.astype(np.float16))
+    return dst
 
 
 # ---------------------------------------------------------------------------
@@ -260,28 +290,44 @@ class MeshSampler:
         return sample_surface_numpy(verts, faces, n_points,
                                     np.random.default_rng(seed))
 
-    def sample_batch(self, paths, n_points, seeds):
-        """Sample many cached meshes -> [len(paths), n_points, 3] f32.
+    def sample_batch(self, paths, n_points, seeds, out=None):
+        """Sample many cached meshes -> [len(paths), n_points, 3], mesh i
+        with seeds[i].
 
-        Native path is multithreaded in C++ with the GIL released."""
+        `out`, when given, is the C-contiguous [len(paths), n_points, 3]
+        array of f32 or f16 to write into (default: a new f32 array).  An
+        f16 `out` takes the sampler's half-float store: the same f32 sample
+        stream, rounded to nearest even on store, so the rows are exactly
+        f16 of the f32 rows.  The native path is multithreaded in C++ with
+        the GIL released."""
         n = len(paths)
-        out = np.empty((n, n_points, 3), np.float32)
+        if out is None:
+            out = np.empty((n, n_points, 3), np.float32)
+        if not (out.flags['C_CONTIGUOUS'] and out.shape == (n, n_points, 3)
+                and out.dtype in (np.float32, np.float16)):
+            raise ValueError(
+                f'sample_batch out mismatch: shape={out.shape} vs '
+                f'({n}, {n_points}, 3), dtype={out.dtype}, '
+                f"contiguous={out.flags['C_CONTIGUOUS']}")
         if self._lib is not None:
             self.load_batch(paths)  # threaded cached (re)load of misses
             handles = np.asarray([self._handles[p] for p in paths],
                                  np.int64)
             seeds = np.asarray(seeds, np.uint64)
-            rc = self._lib.mpa_sample_batch(
-                handles.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-                n, n_points,
-                seeds.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
-                out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-                self._n_threads)
+            if out.dtype == np.float16:
+                fn, ptr = self._lib.mpa_sample_batch_f16, ctypes.c_uint16
+            else:
+                fn, ptr = self._lib.mpa_sample_batch, ctypes.c_float
+            rc = fn(handles.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                    n, n_points,
+                    seeds.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+                    out.ctypes.data_as(ctypes.POINTER(ptr)),
+                    self._n_threads)
             if rc != 0:
                 raise IOError(f'batch sampling failed (rc={rc})')
             return out
         for i, (p, s) in enumerate(zip(paths, seeds)):
-            out[i] = self.sample(p, n_points, int(s))
+            out[i] = self.sample(p, n_points, int(s))  # numpy rounds to f16
         return out
 
     def n_faces(self, path):

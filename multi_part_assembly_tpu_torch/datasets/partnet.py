@@ -10,16 +10,18 @@ groups of equivalent parts, `contact_points`, `sym` and `valid_matrix`.
 
 Two wires, each collating whole batches (`collate_batch`):
 
-  * the host wire: the batch's valid part clouds packed as f16 rows
-    (`part_pcs__packed [K, N, 3]`) with `pack_index [B, P]`, unpacked on
-    the card by `geometry.unpack_parts`.  Exactly K rows ship: the JAX
-    package pads K to one of 8 buckets to bound its jit shapes, which
-    eager PyTorch has no use for;
+  * the host wire: the batch's valid part clouds packed as rows of
+    `data.wire_dtype` (default float16) (`part_pcs__packed [K, N, 3]`)
+    with `pack_index [B, P]`, unpacked on the card by
+    `geometry.unpack_parts`.  Exactly K rows ship: the JAX package pads K
+    to one of 8 buckets to bound its jit shapes, which eager PyTorch has no
+    use for;
   * the slot wire (`enable_device_table`): every cloud lives on the card
     in a resident f16 table (datasets/part_table.py) and the batch ships
     only `part_slots [B, P]`, each part's table row.
 
-Both give the clouds on the f16 grid, bit for bit as the JAX wires do.
+On the f16 grid (the default) both give the clouds bit for bit as the JAX
+wires do.
 """
 
 import collections
@@ -28,7 +30,8 @@ import threading
 
 import numpy as np
 
-from .geometry import DataLoader
+from .geometry import DataLoader, wire_array
+from .mesh_io import f32_to_f16
 
 __all__ = ['PartNetPartDataset', 'enable_device_table',
            'build_partnet_dataloader']
@@ -54,7 +57,8 @@ class PartNetPartDataset:
 
     def __init__(self, data_dir, data_fn, data_keys, num_part_category=20,
                  min_num_part=2, max_num_part=20, shuffle_parts=False,
-                 overfit=-1, level=3, cache_items=2048):
+                 overfit=-1, level=3, cache_items=2048,
+                 wire_dtype='float16'):
         self.data_dir = data_dir
         self.data_fn = data_fn
         self.num_part_category = num_part_category
@@ -63,6 +67,7 @@ class PartNetPartDataset:
         self.shuffle_parts = shuffle_parts
         self.level = level
         self.data_keys = tuple(data_keys)
+        self.wire_dtype = np.dtype(wire_dtype)  # the host wire's rows
         self._cache_items = cache_items
         self._raw_cache = collections.OrderedDict()
         self._item_cache = collections.OrderedDict()  # labels, no clouds
@@ -227,7 +232,9 @@ class PartNetPartDataset:
 
     def collate_batch(self, indices):
         """One batch of numpy arrays: the slot wire once a table is set,
-        else the host wire's packed f16 rows (JAX :238-285)."""
+        else the host wire's packed rows of `wire_dtype` (JAX :238-285),
+        converted by the native f16 pass (`mesh_io.f32_to_f16`) into
+        pinned memory when a card is present."""
         if self._device_ptable is not None:
             return self._collate_table_slots(indices)
         dicts, pcs = [], []
@@ -242,7 +249,14 @@ class PartNetPartDataset:
         mask = row < counts[:, None]
         pack_index = np.zeros(mask.shape, np.int32)
         pack_index[mask] = (offsets[:, None] + row)[mask]
-        batch['part_pcs__packed'] = np.concatenate(pcs).astype(np.float16)
+        packed = wire_array((int(counts.sum()), ) + pcs[0].shape[1:],
+                            self.wire_dtype)
+        for off, p in zip(offsets, pcs):
+            if self.wire_dtype == np.float16:  # one native pass a cloud
+                f32_to_f16(np.ascontiguousarray(p), packed[off:off + len(p)])
+            else:
+                packed[off:off + len(p)] = p
+        batch['part_pcs__packed'] = packed
         batch['pack_index'] = pack_index
         return batch
 
@@ -292,6 +306,7 @@ def build_partnet_dataloader(cfg):
         min_num_part=cfg.data.min_num_part,
         max_num_part=cfg.data.max_num_part,
         overfit=cfg.data.overfit,
+        wire_dtype=cfg.data.get('wire_dtype', 'float16'),
     )
     train_set = PartNetPartDataset(
         data_fn=cfg.data.data_fn.format('train'),

@@ -32,7 +32,43 @@
 #include <unordered_map>
 #include <vector>
 
+#if defined(__F16C__)
+#include <immintrin.h>
+#endif
+
 namespace {
+
+// float -> IEEE-754 half, round-to-nearest-even.  F16C when the build
+// allows it (one instruction); portable bit-twiddling otherwise.  The f16
+// host wire's store: half floats straight from the sampler halve the
+// host-to-device bytes with no extra host pass.
+inline uint16_t f32_to_f16(float f) {
+#if defined(__F16C__)
+  return _cvtss_sh(f, _MM_FROUND_TO_NEAREST_INT);
+#else
+  uint32_t x;
+  std::memcpy(&x, &f, 4);
+  uint32_t sign = (x >> 16) & 0x8000u;
+  int32_t exp = static_cast<int32_t>((x >> 23) & 0xff) - 127 + 15;
+  uint32_t mant = x & 0x7fffffu;
+  if (exp >= 31) return static_cast<uint16_t>(sign | 0x7c00u);  // inf
+  if (exp <= 0) {                                // subnormal / zero
+    if (exp < -10) return static_cast<uint16_t>(sign);
+    mant |= 0x800000u;
+    uint32_t shift = static_cast<uint32_t>(14 - exp);
+    uint32_t half = mant >> shift;
+    uint32_t rem = mant & ((1u << shift) - 1u);
+    uint32_t halfway = 1u << (shift - 1);
+    if (rem > halfway || (rem == halfway && (half & 1u))) half++;
+    return static_cast<uint16_t>(sign | half);
+  }
+  uint16_t half =
+      static_cast<uint16_t>(sign | (exp << 10) | (mant >> 13));
+  uint32_t rem = mant & 0x1fffu;
+  if (rem > 0x1000u || (rem == 0x1000u && (half & 1u))) half++;
+  return half;
+#endif
+}
 
 struct Mesh {
   std::vector<float> verts;     // 3 * n_verts
@@ -171,7 +207,21 @@ void build_areas(Mesh *mesh) {
   }
 }
 
-void sample_mesh(const Mesh &mesh, int n_points, uint64_t seed, float *out) {
+// Templated on the output store so that the f32 and f16 outputs share the
+// sampling loop (the same RNG stream and math: the f16 output is exactly
+// f16(f32 sample), never a different sample).
+struct StoreF32 {
+  float *out;
+  void operator()(size_t j, float val) const { out[j] = val; }
+};
+struct StoreF16 {
+  uint16_t *out;
+  void operator()(size_t j, float val) const { out[j] = f32_to_f16(val); }
+};
+
+template <typename Store>
+void sample_mesh_t(const Mesh &mesh, int n_points, uint64_t seed,
+                   Store store) {
   Pcg32 rng(seed);
   size_t nf = mesh.cum_area.size();
   const float *tri = mesh.tri.data();
@@ -189,9 +239,13 @@ void sample_mesh(const Mesh &mesh, int n_points, uint64_t seed, float *out) {
     float b1 = su * (1.0f - w), b2 = su * w;
     const float *t = tri + 9 * lo;
     for (int d = 0; d < 3; ++d) {
-      out[3 * i + d] = t[d] + b1 * t[3 + d] + b2 * t[6 + d];
+      store(3 * i + d, t[d] + b1 * t[3 + d] + b2 * t[6 + d]);
     }
   }
+}
+
+void sample_mesh(const Mesh &mesh, int n_points, uint64_t seed, float *out) {
+  sample_mesh_t(mesh, n_points, seed, StoreF32{out});
 }
 
 Mesh *get_mesh(int64_t handle) {
@@ -303,6 +357,40 @@ void write_mesh_cache(const char *cpath, uint64_t src_size,
     }
   }
   if (std::rename(tmp.c_str(), cpath) != 0) std::remove(tmp.c_str());
+}
+
+// Batched multithreaded sampling: out is [n_meshes, n_points, 3] of the
+// store's type, mesh i sampled with seeds[i] whatever the thread count.
+template <typename T, typename Store>
+int sample_batch_t(const int64_t *handles, int n_meshes, int n_points,
+                   const uint64_t *seeds, T *out, int n_threads) {
+  std::vector<Mesh *> meshes(n_meshes);
+  for (int i = 0; i < n_meshes; ++i) {
+    meshes[i] = get_mesh(handles[i]);
+    if (!meshes[i]) return -(i + 1);
+  }
+  auto one = [&](int i) {
+    sample_mesh_t(*meshes[i], n_points, seeds[i],
+                  Store{out + static_cast<size_t>(i) * n_points * 3});
+  };
+  if (n_threads <= 1 || n_meshes == 1) {
+    for (int i = 0; i < n_meshes; ++i) one(i);
+    return 0;
+  }
+  std::atomic<int> next{0};
+  auto worker = [&]() {
+    for (;;) {
+      int i = next.fetch_add(1);
+      if (i >= n_meshes) break;
+      one(i);
+    }
+  };
+  int nt = std::min(n_threads, n_meshes);
+  std::vector<std::thread> threads;
+  threads.reserve(nt);
+  for (int t = 0; t < nt; ++t) threads.emplace_back(worker);
+  for (auto &th : threads) th.join();
+  return 0;
 }
 
 }  // namespace
@@ -444,32 +532,31 @@ int mpa_sample(int64_t handle, int n_points, uint64_t seed, float *out) {
 // Batched multithreaded sampling: out is [n_meshes, n_points, 3].
 int mpa_sample_batch(const int64_t *handles, int n_meshes, int n_points,
                      const uint64_t *seeds, float *out, int n_threads) {
-  std::vector<Mesh *> meshes(n_meshes);
-  for (int i = 0; i < n_meshes; ++i) {
-    meshes[i] = get_mesh(handles[i]);
-    if (!meshes[i]) return -(i + 1);
+  return sample_batch_t<float, StoreF32>(handles, n_meshes, n_points, seeds,
+                                         out, n_threads);
+}
+
+// The same batch with IEEE-754 half output (the f16 host wire): out is
+// [n_meshes, n_points, 3] uint16 (an np.float16 view).  The same RNG
+// stream and sample math as mpa_sample_batch; only the store rounds.
+int mpa_sample_batch_f16(const int64_t *handles, int n_meshes, int n_points,
+                         const uint64_t *seeds, uint16_t *out,
+                         int n_threads) {
+  return sample_batch_t<uint16_t, StoreF16>(handles, n_meshes, n_points,
+                                            seeds, out, n_threads);
+}
+
+// Bulk f32 -> f16, round to nearest even (8 lanes at a time under F16C).
+void mpa_f32_to_f16(const float *in, uint16_t *out, int64_t n) {
+  int64_t i = 0;
+#if defined(__F16C__)
+  for (; i + 8 <= n; i += 8) {
+    __m256 v = _mm256_loadu_ps(in + i);
+    __m128i h = _mm256_cvtps_ph(v, _MM_FROUND_TO_NEAREST_INT);
+    _mm_storeu_si128(reinterpret_cast<__m128i *>(out + i), h);
   }
-  if (n_threads <= 1 || n_meshes == 1) {
-    for (int i = 0; i < n_meshes; ++i)
-      sample_mesh(*meshes[i], n_points, seeds[i],
-                  out + static_cast<size_t>(i) * n_points * 3);
-    return 0;
-  }
-  std::atomic<int> next{0};
-  auto worker = [&]() {
-    for (;;) {
-      int i = next.fetch_add(1);
-      if (i >= n_meshes) break;
-      sample_mesh(*meshes[i], n_points, seeds[i],
-                  out + static_cast<size_t>(i) * n_points * 3);
-    }
-  };
-  int nt = std::min(n_threads, n_meshes);
-  std::vector<std::thread> threads;
-  threads.reserve(nt);
-  for (int t = 0; t < nt; ++t) threads.emplace_back(worker);
-  for (auto &th : threads) th.join();
-  return 0;
+#endif
+  for (; i < n; ++i) out[i] = f32_to_f16(in[i]);
 }
 
 // Export the device-sampler tables for a cached mesh (see

@@ -62,8 +62,10 @@ LAUNCHES = {'nn_parts': 0, 'nn_diag': 0, 'bwd_parts': 0, 'bwd_diag': 0,
 
 # query rows per distance block of the plain whole-shape version: bounds
 # its [rows, P*N] f32 temporaries (one dense [P*N]^2 tile is 1.6 GB at
-# P=20, N=1000)
+# P=20, N=1000); on the CPU fewer, so that a block's temporaries stay in
+# cache (a 2048-row block is 164 MB a temporary at P*N = 20000)
 _PLAIN_ROWS = 2048
+_PLAIN_ROWS_CPU = 128
 # pair distances per block of `nn_dir_plain`: bounds its [nb, rows, N2] f32
 # temporaries (one repulsion scan row, 640 clouds of 1000 x 1000, would be
 # 2.56 GB a temporary)
@@ -320,11 +322,21 @@ def nn_dir_cuda(x, y):
 
 def _sqdist(a, b):
     """[..., M, 3] x [..., K, 3] -> [..., M, K] squared distances, as the
-    kernel computes them: (dx*dx + dy*dy) + dz*dz, each op rounded."""
-    dx = a[..., :, None, 0] - b[..., None, :, 0]
-    dy = a[..., :, None, 1] - b[..., None, :, 1]
-    dz = a[..., :, None, 2] - b[..., None, :, 2]
-    return (dx * dx + dy * dy) + dz * dz
+    kernel computes them: (dx*dx + dy*dy) + dz*dz, each op rounded.  On
+    the CPU outside autograd the same ops run in place, in two temporaries
+    instead of eight."""
+    if a.device.type != 'cpu' or (torch.is_grad_enabled() and (
+            a.requires_grad or b.requires_grad)):
+        dx = a[..., :, None, 0] - b[..., None, :, 0]
+        dy = a[..., :, None, 1] - b[..., None, :, 1]
+        dz = a[..., :, None, 2] - b[..., None, :, 2]
+        return (dx * dx + dy * dy) + dz * dz
+    d = a[..., :, None, 0] - b[..., None, :, 0]
+    d.mul_(d)
+    t = a[..., :, None, 1] - b[..., None, :, 1]
+    d.add_(t.mul_(t))
+    torch.sub(a[..., :, None, 2], b[..., None, :, 2], out=t)
+    return d.add_(t.mul_(t))
 
 
 def nn_plain(query, target, n_parts, diagonal, keep=None):
@@ -339,28 +351,35 @@ def nn_plain(query, target, n_parts, diagonal, keep=None):
     dist = query.new_zeros((B, P, N))
     witness = torch.full((B, P, N), -1, dtype=torch.int32,
                          device=query.device)
+    on_cpu = query.device.type == 'cpu'
+    rows = _PLAIN_ROWS_CPU if on_cpu else _PLAIN_ROWS
     for b, n_p in enumerate(n_parts.clamp(0, P).tolist()):
         if n_p == 0:
             continue
         if diagonal:
-            m, a = _sqdist(query[b, :n_p], target[b, :n_p]).min(dim=-1)
-            offset = torch.arange(n_p, device=query.device)[:, None] * N
-            dist[b, :n_p] = m
-            witness[b, :n_p] = (a + offset).to(torch.int32)
+            # a part at a time on the CPU, all parts at once on the card
+            step = 1 if on_cpu else n_p
+            for p in range(0, n_p, step):
+                m, a = _sqdist(query[b, p:p + step],
+                               target[b, p:p + step]).min(dim=-1)
+                offset = torch.arange(p, p + m.shape[0],
+                                      device=query.device)[:, None] * N
+                dist[b, p:p + step] = m
+                witness[b, p:p + step] = (a + offset).to(torch.int32)
             continue
         q = query[b, :n_p].reshape(n_p * N, 3)
         t = target[b, :n_p].reshape(n_p * N, 3)
         d_out = dist[b, :n_p].view(-1)
         w_out = witness[b, :n_p].view(-1)
         part = torch.arange(n_p * N, device=query.device) // N
-        for r in range(0, n_p * N, _PLAIN_ROWS):
-            d = _sqdist(q[r:r + _PLAIN_ROWS], t)
+        for r in range(0, n_p * N, rows):
+            d = _sqdist(q[r:r + rows], t)
             if keep is not None:
-                kept = keep[b, :n_p, :n_p][part[r:r + _PLAIN_ROWS]][:, part]
+                kept = keep[b, :n_p, :n_p][part[r:r + rows]][:, part]
                 d = d.masked_fill(~kept, float('inf'))
             m, a = d.min(dim=-1)
-            d_out[r:r + _PLAIN_ROWS] = m
-            w_out[r:r + _PLAIN_ROWS] = a.to(torch.int32)
+            d_out[r:r + rows] = m
+            w_out[r:r + rows] = a.to(torch.int32)
     return dist, witness
 
 

@@ -18,11 +18,13 @@ What is captured and what is not:
     kernel L1), backward, the zero gradient of parameters the loss does not
     reach, clipping, Adam/AdamW with `capturable=True` at the lr held in a
     device scalar, and the stacked logs;
-  * in front of each replay, on the same stream: the copy of the batch into
-    the static inputs, and whatever makes that batch on the device (the
-    host wire's copy, the slot wire's `sample_and_expand`, whose packed rows
-    vary a batch, the semantic wire's unpack or table gather), and the
-    `fill_` of the lr for the step's index in `train/schedules.py`;
+  * in front of each replay, on the same stream: the wait on the batch's
+    placement event (whatever makes the batch on the device, the host
+    wire's copy and expansion, the slot wire's `sample_and_expand`, whose
+    packed rows vary a batch, the semantic wire's unpack or table gather,
+    runs on the loader's own thread and stream: train/trainer.py
+    `DevicePlacement`), the copy of the batch into the static inputs, and
+    the `fill_` of the lr for the step's index in `train/schedules.py`;
   * never captured: a step on the CPU, or under several ranks (gloo stages
     every collective through the host, parallel/dist.py), and a config that
     `uncapturable` names.  Those run `step_vector` eagerly.
@@ -226,7 +228,8 @@ class CompiledStep:
         self.optimizer.zero_grad(set_to_none=True)
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
-        # thread_local: the loader's producer thread may pin host memory
+        # thread_local: the loader's threads may pin host memory, and its
+        # placement stage launch kernels and allocate on its own stream,
         # while the step is captured
         with torch.cuda.graph(graph, capture_error_mode='thread_local'):
             out = self.body(self.static_in)

@@ -5,15 +5,20 @@ loop, validation every `val_every` epochs with batch-size-weighted metric
 means, the sampled-assembly PLY export of each validation, checkpoints that
 keep the 5 best epochs by `val/part_acc` with auto-resume from the newest,
 weight loading, the test loop, and JSONL logging with an optional wandb
-mirror.  Geometric batches come over the host wire or, with
-`data.device_sampling`, over the slot wire, whose points the card samples
-itself (JAX trainer.py:267-311 and :537-548); semantic (PartNet) batches
-over the host wire's packed f16 rows or, with `data.device_table`, as slots
-into a resident table of the split's clouds (JAX trainer.py:324-353 and
-:505-517).  One train step (JAX parallel/mesh.py:122-140, train/step.py)
-augments a geometric batch on the device (a PartNet batch carries its
-poses), runs `mon_loss`, takes its gradient and an Adam step at the
-scheduled lr.
+mirror.  Geometric batches come over the host wire's packed rows
+(`data.wire_dtype`, default f16) or, with `data.device_sampling`, over the
+slot wire, whose points the card samples itself (JAX trainer.py:267-311
+and :537-548); semantic (PartNet) batches over the host wire's packed rows
+or, with `data.device_table`, as slots into a resident table of the
+split's clouds (JAX trainer.py:324-353 and :505-517).  Each loader places
+its batches on the device on a thread of its own (`DevicePlacement`, JAX
+`install_device_prep`): the copy, the expansion and the slot wire's
+sampling overlap the steps in flight.  Checkpoints are saved
+asynchronously (train/checkpoint.py, JAX's orbax manager with
+`enable_async_checkpointing`).  One train step (JAX
+parallel/mesh.py:122-140, train/step.py) augments a geometric batch on the
+device (a PartNet batch carries its poses), runs `mon_loss`, takes its
+gradient and an Adam step at the scheduled lr.
 
 Dispatch (JAX trainer.py:518-610, 686-790): on a CUDA device with one
 rank every train step is a replay of one captured CUDA graph
@@ -48,7 +53,8 @@ import torch
 from ..datasets import build_dataloader
 from ..datasets.device_sampler import sample_and_expand
 from ..datasets.geometry import (augment_geometry_batch,
-                                 enable_device_sampling, unpack_parts)
+                                 enable_device_sampling,
+                                 expand_geometry_batch, unpack_parts)
 from ..datasets.part_table import gather_part_table
 from ..datasets.partnet import enable_device_table
 from ..models import build_model
@@ -60,10 +66,11 @@ from .step import CompiledStep, step_vector, steps_per_call, uncapturable
 
 __all__ = ['Trainer', 'JSONLLogger', 'WandbLogger', 'NullLogger',
            'build_logger', 'device_sampling_enabled', 'device_table_enabled',
-           'optimize_step']
+           'optimize_step', 'device_batch', 'DevicePlacement']
 
 _SWITCH_WORDS = {'true': True, 'false': False, 'auto': 'auto'}
 _HOST_KEYS = ('data_id', 'shape_id')  # host-only metadata
+_READY = '__ready__'  # a placed batch's key: its CUDA event, or None
 
 
 class JSONLLogger:
@@ -182,6 +189,82 @@ def _to_device(batch, device):
             if k not in _HOST_KEYS}
 
 
+def device_batch(batch, cfg, device):
+    """A host batch -> its tensors on `device`, before augmentation (JAX
+    trainer.py:267-358): the host wire's packed rows are upcast and
+    expanded, a geometric slot-wire batch is sampled (B5/B6, seeded by the
+    batch) and expanded, and a PartNet batch's clouds are unpacked from the
+    host wire's rows or gathered from the resident table."""
+    if 'part_pcs__packed' in batch or 'part_slots' in batch:
+        batch = dict(batch)
+        ptable = batch.pop('__ptable__', None)
+        dev = _to_device(batch, device)
+        valids = dev['part_valids']
+        if ptable is not None:
+            dev['part_pcs'] = gather_part_table(
+                ptable.table, dev.pop('part_slots'), valids)
+        else:
+            dev['part_pcs'] = unpack_parts(
+                dev.pop('part_pcs__packed').float(),
+                dev.pop('pack_index'), valids)
+        return dev
+    if 'part_slots__packed' in batch:
+        batch = dict(batch)
+        tables = batch.pop('__tables__')
+        seed = int(batch.pop('sample_seed'))
+        dev = _to_device(batch, device)
+        return sample_and_expand(
+            tables.table, tables.n_faces, dev['part_slots__packed'],
+            dev['part_counts'], seed, n_points=int(cfg.data.num_pc_points),
+            max_parts=int(cfg.data.max_num_part),
+            data_keys=tuple(cfg.data.data_keys))
+    if 'part_pcs_raw__packed' in batch:
+        dev = _to_device(batch, device)
+        return expand_geometry_batch(
+            dev['part_pcs_raw__packed'], dev['part_counts'],
+            max_parts=int(cfg.data.max_num_part),
+            data_keys=tuple(cfg.data.data_keys))
+    return _to_device(batch, device)
+
+
+class DevicePlacement:
+    """The loaders' `transform` stage (JAX trainer.py:364-383
+    `install_device_prep`, one batch at a time): `device_batch` of each
+    host batch on the loader's own thread, so that the copy to the card,
+    the host wire's expansion and the slot wire's sampling overlap the
+    steps in flight.  None of it reads trainer state: the slot wire's seed
+    comes with the batch.
+
+    On CUDA the work is issued on a stream of this stage's own, and the
+    placed batch carries the event recorded after it (key `_READY`); the
+    consumer (`Trainer._device_batch`) makes its stream wait on the event
+    and marks the tensors used there before it touches them.  On the CPU
+    the same work runs without streams (`_READY` None).  The host-only
+    keys (`data_id`, `shape_id`) ride along for the loader's callers."""
+
+    def __init__(self, cfg, device):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.stream = None
+        if self.device.type == 'cuda':
+            self.stream = torch.cuda.Stream(self.device)
+            # after whatever the device holds so far (the tables)
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+
+    def __call__(self, batch):
+        ready = None
+        if self.stream is None:
+            out = device_batch(batch, self.cfg, self.device)
+        else:
+            with torch.cuda.stream(self.stream):
+                out = device_batch(batch, self.cfg, self.device)
+                ready = torch.cuda.Event()
+                ready.record(self.stream)
+        out.update({k: batch[k] for k in _HOST_KEYS if k in batch})
+        out[_READY] = ready
+        return out
+
+
 def _switch(cfg, key, device, dataset):
     """`cfg.data.<key>`: True, False or 'auto', or one of the strings
     'true', 'false', 'auto' in any case (the key is absent from the
@@ -286,6 +369,7 @@ class Trainer:
             self._try_resume()
 
     def _build_loaders(self, cfg):
+        """The loaders, their wires, and their placement stage."""
         self.train_loader, self.val_loader = build_dataloader(cfg)
         loaders = (('train', self.train_loader), ('val', self.val_loader))
         # the slot wires, per split (None = the host wire): geometric
@@ -301,6 +385,8 @@ class Trainer:
             self.part_tables = {
                 name: enable_device_table(loader, cfg, self.device)
                 for name, loader in loaders}
+        for _, loader in loaders:
+            loader.transform = DevicePlacement(cfg, self.device)
 
     # ------------------------------------------------------------------
     # checkpoints (JAX trainer.py:641-673)
@@ -328,6 +414,7 @@ class Trainer:
             self.compiled.release()
 
     def _try_resume(self):
+        self.ckpt_mgr.wait_until_finished()
         latest = self.ckpt_mgr.latest_step()
         if latest is None:
             return
@@ -339,6 +426,10 @@ class Trainer:
                   flush=True)
 
     def save_checkpoint(self, epoch, metrics):
+        """Start an asynchronous save of the model, optimizer, step and
+        epoch (train/checkpoint.py): the state is copied to the host now
+        and written by the manager's writer thread; it is on disk after
+        `ckpt_mgr.wait_until_finished()`, the end of `fit` or `close`."""
         self._flush_train_logs()
         optimizer = self.optimizer.state_dict()
         for group in optimizer['param_groups']:  # a copy of each group
@@ -352,41 +443,31 @@ class Trainer:
         """Load the model, optimizer and step of a checkpoint: its step
         directory (`models/<epoch>`, what `find_last_ckp` returns) or the
         state file in it."""
+        self.ckpt_mgr.wait_until_finished()
         self._load_state(load_state(os.path.abspath(path), self.device))
 
     # ------------------------------------------------------------------
     # loops
     # ------------------------------------------------------------------
     def _device_batch(self, batch):
-        """A host batch -> its tensors on the device, before augmentation.
-        A geometric slot-wire batch is sampled and expanded on the device; a
-        PartNet batch's clouds are unpacked from the host wire's rows or
-        gathered from the resident table (JAX trainer.py:339-358)."""
-        if 'part_pcs__packed' in batch or 'part_slots' in batch:
-            batch = dict(batch)
-            ptable = batch.pop('__ptable__', None)
-            dev = _to_device(batch, self.device)
-            valids = dev['part_valids']
-            if ptable is not None:
-                dev['part_pcs'] = gather_part_table(
-                    ptable.table, dev.pop('part_slots'), valids)
-            else:
-                dev['part_pcs'] = unpack_parts(
-                    dev.pop('part_pcs__packed').float(),
-                    dev.pop('pack_index'), valids)
-            return dev
-        if 'part_slots__packed' in batch:
-            batch = dict(batch)
-            tables = batch.pop('__tables__')
-            seed = int(batch.pop('sample_seed'))
-            dev = _to_device(batch, self.device)
-            return sample_and_expand(
-                tables.table, tables.n_faces, dev['part_slots__packed'],
-                dev['part_counts'], seed,
-                n_points=int(self.cfg.data.num_pc_points),
-                max_parts=int(self.cfg.data.max_num_part),
-                data_keys=tuple(self.cfg.data.data_keys))
-        return _to_device(batch, self.device)
+        """A batch from the loaders -> its tensors on the device, before
+        augmentation.  A batch that the loader's placement stage made
+        (`DevicePlacement`) is ready once this thread's stream waits on its
+        event; its tensors are marked as used on that stream, so that the
+        caching allocator keeps them until the steps that read them are
+        done.  A host batch is placed here (`device_batch`).  The batch is
+        not changed, so it may be used again."""
+        if _READY not in batch:
+            return device_batch(batch, self.cfg, self.device)
+        ready = batch[_READY]
+        batch = {k: v for k, v in batch.items()
+                 if k != _READY and k not in _HOST_KEYS}
+        if ready is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(ready)
+            for t in batch.values():
+                t.record_stream(stream)
+        return batch
 
     def _augment_device(self, batch, generator=None):
         """A device batch, a geometric one augmented, its rotations drawn
@@ -593,7 +674,9 @@ class Trainer:
     def fit(self):
         """Train from `start_epoch`, validating and saving a checkpoint
         every `val_every` epochs and after the last (JAX
-        trainer.py:906-922).  Returns the last validation's metrics."""
+        trainer.py:906-922); each save's write overlaps the epochs after
+        it, and the last is on disk when this returns.  Returns the last
+        validation's metrics."""
         cfg = self.cfg
         for epoch in range(self.start_epoch, cfg.exp.num_epochs):
             t0 = time.perf_counter()
@@ -605,6 +688,7 @@ class Trainer:
                     epoch == cfg.exp.num_epochs - 1:
                 self.metrics = self.validate(epoch)
                 self.save_checkpoint(epoch, self.metrics)
+        self.ckpt_mgr.wait_until_finished()
         return self.metrics
 
     def swap_loaders(self, cfg):
@@ -626,8 +710,10 @@ class Trainer:
         return metrics
 
     def close(self):
-        """Flush the logs, close the sink and free the captured graph."""
+        """Flush the logs, finish the pending save, close the sink and free
+        the captured graph (JAX trainer.py:946-950)."""
         self._flush_train_logs()
+        self.ckpt_mgr.wait_until_finished()
         if self.compiled is not None:
             self.compiled.release()
         self.logger.close()

@@ -300,3 +300,29 @@ def test_unsupported_device_raises():
     x = torch.zeros((1, 2, 4, 3), device='meta')
     with pytest.raises(ValueError, match='no chamfer kernel'):
         TC.chamfer_parts(x, x, torch.ones((1, 2), device='meta'))
+
+
+@pytest.mark.parametrize('keep', [False, True])
+@pytest.mark.parametrize('diagonal', [False, True])
+def test_plain_cpu_blocks_match_one_block(monkeypatch, diagonal, keep):
+    """The CPU's small row blocks, its part-at-a-time diagonal and its
+    in-place squared distances give the distances and witnesses of one
+    block of the out-of-place ops (the card's form), bit for bit, ties
+    included."""
+    x, y, valids, _, _ = (torch.from_numpy(a)
+                          for a in _inputs('multigroup_6_10'))
+    x[:, 1] = x[:, 0]  # whole parts of tied distances
+    y[:, 2, :20] = y[:, 2, 20:]
+    n_parts = valids.sum(1).int()
+    mask = None
+    if keep and not diagonal:
+        mask = torch.from_numpy(np.random.RandomState(3).rand(
+            *valids.shape, valids.shape[1]) < 0.6)
+    got = TC.nn_pair_plain(x, y, n_parts, diagonal, mask)
+    monkeypatch.setattr(TC, '_PLAIN_ROWS_CPU', 10**9)
+    with torch.enable_grad():  # the out-of-place ops
+        xg, yg = x.clone().requires_grad_(), y.clone().requires_grad_()
+        want = TC.nn_pair_plain(xg, yg, n_parts, diagonal, mask)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        assert torch.equal(g, w.detach())

@@ -22,7 +22,10 @@ JAX package.
     rule: per parameter, with a floor of 1e-6 of the whole norm; an element
     whose gradient is float noise only within Adam's step bound); both
     ranks' parameters bitwise equal after Adam;
-  - rank 0's generator is the one-rank stream; rank 1's differs.
+  - rank 0's generator is the one-rank stream; rank 1's differs;
+  - both ranks save asynchronously (rank 0 writes): the save returns before
+    the write, and after `wait_until_finished` each rank reads the whole
+    checkpoint, bitwise the state at the save.
 """
 
 import os
@@ -182,7 +185,8 @@ def run(tmp_path_factory):
     inputs = {
         'seed': SEED, 'bn': _bn_inputs(), 'dgcnn': _dgcnn_inputs(),
         'step': {'cfg': FLAGSHIP, 'opts': OPTS, 'data': U.to_torch(data),
-                 'state': jax_to_state_dict(var)}}
+                 'state': jax_to_state_dict(var)},
+        'ckpt': str(tmp / 'ckpt')}
     path = tmp / 'inputs.pt'
     torch.save(inputs, path)
     worker = os.path.join(ROOT, 'tests', 'torch_ddp_worker.py')
@@ -433,3 +437,18 @@ def test_sync_bn_of_reads_words(value, want):
     assert sync_bn_of(model_cfg) is True  # the default
     with pytest.raises(ValueError, match='sync_bn'):
         sync_bn_of(TCFG.CfgNode({'exp': TCFG.CfgNode({'sync_bn': 'maybe'})}))
+
+
+def test_async_save_is_whole_for_every_rank(run):
+    _, results, _ = run
+    for r, res in enumerate(results):
+        ck = res['ckpt']
+        assert not ck['on_disk_at_return'], r  # the write was held back
+        assert ck['steps'] == [0], r
+        assert ck['writes'] == (1 if r == 0 else 0), r
+        assert set(ck['loaded']) == set(ck['at_save']), r
+        for k, v in ck['at_save'].items():
+            assert torch.equal(ck['loaded'][k], v), (r, k)
+    # both ranks held the same weights at the save
+    for k, v in results[0]['ckpt']['at_save'].items():
+        assert torch.equal(results[1]['ckpt']['at_save'][k], v), k

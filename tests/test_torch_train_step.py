@@ -274,20 +274,37 @@ def test_dataset_matches_jax(synth):
                 np.testing.assert_array_equal(a[k], b[k])
 
 
-def test_loader_batches(synth):
+@pytest.mark.parametrize('wire_dtype', ['float32', 'float16'])
+def test_loader_batches(synth, wire_dtype):
+    """The host wire ships the batch's K part rows in `wire_dtype` with the
+    part counts; they expand to the dense f32 items' clouds, bit for bit on
+    the f32 wire and on the f16 grid on the f16 wire, in the epoch's
+    seeded order."""
+    from multi_part_assembly_tpu_torch.datasets.geometry import \
+        expand_geometry_batch
     ds = GeometryPartDataset(synth, 'everyday.train.txt', ('part_ids', ),
-                             num_points=16, max_num_part=6)
+                             num_points=16, max_num_part=6,
+                             wire_dtype=wire_dtype)
     loader = DataLoader(ds, batch_size=4, shuffle=True, drop_last=True)
     assert len(loader) == 1
     loader.set_epoch(1)
     batches = list(loader)
     assert len(batches) == 1
     b = batches[0]
-    assert b['part_pcs_raw'].shape == (4, 6, 16, 3)
-    assert b['part_pcs_raw'].dtype == torch.float32
+    counts = [int((ds[i]['part_valids'] > 0).sum())
+              for i in b['data_id'].tolist()]
+    assert b['part_counts'].tolist() == counts
+    assert b['part_pcs_raw__packed'].shape == (sum(counts), 16, 3)
+    assert b['part_pcs_raw__packed'].dtype == getattr(torch, wire_dtype)
+    pcs = expand_geometry_batch(b['part_pcs_raw__packed'],
+                                b['part_counts'], 6)['part_pcs_raw']
+    assert pcs.shape == (4, 6, 16, 3)
+    assert pcs.dtype == torch.float32
     for row, i in enumerate(b['data_id'].tolist()):
-        np.testing.assert_array_equal(b['part_pcs_raw'][row].numpy(),
-                                      ds[i]['part_pcs_raw'])
+        want = ds[i]['part_pcs_raw']
+        if wire_dtype == 'float16':
+            want = want.astype(np.float16).astype(np.float32)
+        np.testing.assert_array_equal(pcs[row].numpy(), want)
     assert [b['data_id'].tolist() for b in loader] == \
         [batches[0]['data_id'].tolist()]  # shuffling is seeded by epoch
     val = DataLoader(ds, batch_size=4, shuffle=False, drop_last=False)

@@ -15,7 +15,10 @@ runs each case and saves what it saw to OUT.pt:
   - dgcnn: the DGCNN encoder, sync, forward and backward; dgcnn_stage: its
     first EdgeConv stage under per-replica mode, which stays sync;
   - step: one flagship `optimize_step` (the trainer's), f32, no dropout;
-  - draws: the first normals of the rank's generator.
+  - draws: the first normals of the rank's generator;
+  - ckpt: an asynchronous save of the stepped model (rank 0 writes, its
+    write held back 0.5 s), the model changed in place after it, then
+    `wait_until_finished` and every rank's read of the checkpoint.
 
 Not a pytest module itself.
 """
@@ -90,6 +93,38 @@ def _bn_case(TN, dist, spec, x, mask, g, r, world, sync):
             'dbias': dist.all_reduce_(bn.bias.grad.clone()),
             'running_mean': bn.running_mean.clone(),
             'running_var': bn.running_var.clone()}
+
+
+def _async_save(folder, model, dist):
+    """Save `model` asynchronously on every rank, change it in place while
+    rank 0's write is held back, then wait and read the checkpoint back."""
+    import time
+
+    from multi_part_assembly_tpu_torch.train import checkpoint as CK
+    real = CK.torch.save
+
+    def slow_save(obj, path):
+        time.sleep(0.5)
+        real(obj, path)
+
+    CK.torch.save = slow_save
+    try:
+        mgr = CK.CheckpointManager(folder)
+        at_save = {k: v.clone() for k, v in model.state_dict().items()}
+        t0 = time.perf_counter()
+        mgr.save(0, {'model': model.state_dict()}, {'val/part_acc': 0.5})
+        save_s = time.perf_counter() - t0
+        on_disk_at_return = os.path.isdir(os.path.join(folder, '0'))
+        with torch.no_grad():
+            for p in model.parameters():
+                p.add_(1.0)
+        mgr.wait_until_finished()
+    finally:
+        CK.torch.save = real
+    loaded = CK.load_state(os.path.join(folder, '0'), 'cpu')['model']
+    return {'at_save': at_save, 'loaded': loaded, 'save_s': save_s,
+            'on_disk_at_return': on_disk_at_return,
+            'steps': mgr.all_steps(), 'writes': len(mgr.write_seconds)}
 
 
 def main():
@@ -178,6 +213,8 @@ def main():
 
     gen = torch.Generator().manual_seed(dist.rank_seed(inp['seed']))
     res['draws'] = torch.randn(8, generator=gen)
+
+    res['ckpt'] = _async_save(inp['ckpt'], model, dist)
     torch.save(res, args.out)
     dist.barrier()
     dist.destroy()
