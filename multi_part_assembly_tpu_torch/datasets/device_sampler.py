@@ -52,6 +52,7 @@ import torch
 
 from .geometry import expand_geometry_batch
 from ..ops.cuda_build import load_library
+from ..utils import tracing
 
 __all__ = ['DeviceTables', 'build_device_tables', 'table_records',
            'jax_table', 'sample_packed', 'sample_packed_ref',
@@ -162,7 +163,9 @@ def build_device_tables(paths, sampler, device, budget_bytes=4 * 1024 ** 3,
     paths = list(dict.fromkeys(paths))  # stable unique order
     if not paths:
         return None
-    counts = [sampler.n_faces(p) for p in paths]
+    # each piece's first parse (or sidecar read) into the mesh registry
+    with tracing.span('data.mesh_load', always=True, pieces=len(paths)):
+        counts = [sampler.n_faces(p) for p in paths]
     n_pieces = len(paths)
     slot_of = {p: i for i, p in enumerate(paths)}
 

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..parallel import dist
+from ..utils import tracing
 from ..utils.rotation import (quaternion_invert, quaternion_multiply,
                               quaternion_to_matrix)
 from ..utils.transforms import random_quaternions
@@ -285,7 +286,15 @@ class DataLoader:
     trainer's device placement, train/trainer.py `DevicePlacement`), each
     keeping _PREFETCH batches ready.  Both stop when the consumer
     abandons the iterator, which joins them; an exception in either is
-    raised in the consumer."""
+    raised in the consumer.
+
+    Spans (utils/tracing.py), each with the batch's (epoch, batch):
+    `data.collate` on the collate thread, `data.place` on the transform
+    thread, `data.wait` for the consumer's hand-over, and
+    `data.epoch_start` from the iterator's start to its first batch.
+    Counters: `data.valid_parts` at collate, `data.batches` and
+    `data.starved` (a hand-over that found no batch ready) at the
+    hand-over."""
 
     def __init__(self, dataset, batch_size, shuffle=False, drop_last=False,
                  seed=0, rank=None, world=None, transform=None):
@@ -322,6 +331,9 @@ class DataLoader:
             yield order[i * self.batch_size:(i + 1) * self.batch_size]
 
     def __iter__(self):
+        epoch = self.epoch
+        opening = tracing.span('data.epoch_start', epoch=epoch)
+        opening.__enter__()
         pin = torch.cuda.is_available()
         stop = threading.Event()
         done = object()
@@ -339,11 +351,15 @@ class DataLoader:
 
         def collate(q):
             try:
-                for idx in self._batches():
+                for n, idx in enumerate(self._batches()):
                     if stop.is_set():
                         return
-                    batch = self.dataset.collate_batch([int(i) for i in idx])
-                    if not put(q, _to_tensors(batch, pin)):
+                    with tracing.span('data.collate', epoch=epoch, batch=n):
+                        batch = self.dataset.collate_batch(
+                            [int(i) for i in idx])
+                        tensors = _to_tensors(batch, pin)
+                    tracing.count('data.valid_parts', _valid_parts(batch))
+                    if not put(q, (n, tensors)):
                         return
             except Exception as e:  # re-raised in the consumer
                 put(q, e)
@@ -358,9 +374,12 @@ class DataLoader:
                     continue
                 if stop.is_set():
                     return
-                if item is not done and not isinstance(item, Exception):
+                if isinstance(item, tuple):
+                    n, batch = item
                     try:
-                        item = self.transform(item)
+                        with tracing.span('data.place', epoch=epoch,
+                                          batch=n):
+                            item = n, self.transform(batch)
                     except Exception as e:  # re-raised in the consumer
                         item = e
                 if not put(out_q, item) or item is done or \
@@ -379,14 +398,25 @@ class DataLoader:
         for t in threads:
             t.start()
         try:
+            n = 0
             while True:
-                item = out_q.get()
+                if out_q.empty():
+                    tracing.count('data.starved')
+                with tracing.span('data.wait', epoch=epoch, batch=n):
+                    item = out_q.get()
+                if opening is not None:
+                    opening.__exit__(None, None, None)
+                    opening = None
                 if item is done:
                     return
                 if isinstance(item, BaseException):
                     raise item
-                yield item
+                tracing.count('data.batches')
+                n += 1
+                yield item[1]
         finally:
+            if opening is not None:
+                opening.__exit__(None, None, None)
             stop.set()
             for q in queues:  # wakes a stage blocked on a full queue
                 try:
@@ -396,6 +426,16 @@ class DataLoader:
                     pass
             for t in threads:
                 t.join()
+
+
+def _valid_parts(batch):
+    """The valid parts of a collated batch: its part counts (geometric
+    wires) or its valid part slots (PartNet)."""
+    if 'part_counts' in batch:
+        return int(np.sum(batch['part_counts']))
+    if 'part_valids' in batch:
+        return int(np.count_nonzero(np.asarray(batch['part_valids'])))
+    return 0
 
 
 def unpack_parts(part_pcs_packed, pack_index, part_valids):

@@ -16,6 +16,8 @@ import threading
 
 import numpy as np
 
+from ..utils import tracing
+
 __all__ = ['MeshSampler', 'load_obj_numpy', 'sample_surface_numpy',
            'mesh_cache_path', 'f32_to_f16']
 
@@ -247,12 +249,18 @@ class MeshSampler:
         on the producer thread (the measured cold-cache bench bottleneck).
         Here the misses ride one `mpa_load_mesh_cached_batch` call that
         threads over meshes with the GIL released.  The numpy sampler and a
-        single miss take the sequential path."""
+        single miss take the sequential path.  The loads of misses are the
+        span `data.mesh_load` (utils/tracing.py), kept always."""
         missing = [p for p in dict.fromkeys(paths)
                    if (p not in self._handles if self._lib is not None
                        else p not in self._np_cache)]
         if not missing:
             return
+        with tracing.span('data.mesh_load', always=True,
+                          pieces=len(missing)):
+            self._load_missing(missing)
+
+    def _load_missing(self, missing):
         if self._lib is None or len(missing) == 1:
             for p in missing:
                 self.load(p)

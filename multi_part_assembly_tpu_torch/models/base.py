@@ -8,6 +8,8 @@ stochastic path; `forward` is both.  Train or eval mode is the module's own
 
 import torch
 
+from ..utils import tracing
+
 __all__ = ['extract_part_feats', 'rot_dim_of', 'zero_pose']
 
 
@@ -39,7 +41,8 @@ def zero_pose(rot_type, dtype=torch.float32, device=None):
 def extract_part_feats(encoder, part_pcs, part_valids):
     """Encode every one of the B*P parts with shared weights; the validity
     mask drives the BN statistics and zeroes padded parts' features
-    (JAX base.py:46-65).
+    (JAX base.py:46-65).  The device region `encoder`
+    (utils/tracing.py).
 
     Args:
         part_pcs: [B, P, N, 3];  part_valids: [B, P]
@@ -47,7 +50,9 @@ def extract_part_feats(encoder, part_pcs, part_valids):
     Returns: [B, P, C]
     """
     B, P, N, _ = part_pcs.shape
+    part_pcs, = tracing.region_begin('encoder', part_pcs)
     flat_mask = part_valids.reshape(B * P)
     feats = encoder(part_pcs.reshape(B * P, N, 3), mask=flat_mask)
     feats = feats * flat_mask[:, None]
-    return feats.reshape(B, P, -1)
+    feats, = tracing.region_end('encoder', feats.reshape(B, P, -1))
+    return feats

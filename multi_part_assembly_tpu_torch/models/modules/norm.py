@@ -45,6 +45,7 @@ import torch
 from torch import nn
 
 from ...parallel.dist import all_reduce_, all_reduce_sum, world
+from ...utils import tracing
 
 __all__ = ['MaskedBatchNorm', 'frozen_stats']
 
@@ -115,7 +116,8 @@ class _MaskedMoments(torch.autograd.Function):
 
 class MaskedBatchNorm(nn.Module):
     """BatchNorm over every axis but the last (channel) one, weighted by an
-    optional mask broadcastable to x's shape minus the channel axis."""
+    optional mask broadcastable to x's shape minus the channel axis.  Each
+    call is the device region `masked_bn` (utils/tracing.py)."""
 
     def __init__(self, num_features, momentum=0.1, eps=1e-5, lean=False,
                  sync=True):
@@ -137,6 +139,15 @@ class MaskedBatchNorm(nn.Module):
             f32), used in train mode instead of x's moments; the running
             statistics update once from them (JAX norm.py:56-68,
             :129-136).  With several ranks they must be global."""
+        x, = tracing.region_begin('masked_bn', x)
+        out = self._normalize(x, mask, stats, affine_only)
+        if affine_only:
+            return tracing.region_end('masked_bn', *out)
+        out, = tracing.region_end('masked_bn', out)
+        return out
+
+    def _normalize(self, x, mask, stats, affine_only):
+        """`forward` without its marks."""
         if self.training:
             ranks = world() > 1
             sync, replica = self.sync and ranks, not self.sync and ranks

@@ -5,6 +5,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...utils import tracing
+
 __all__ = ['PoseRegressor', 'StochasticPoseRegressor', 'normalize_rot6d']
 
 
@@ -24,7 +26,8 @@ class PoseRegressor(nn.Module):
     """MLP head: feat -> 256 -> 128 -> (rot, trans), rot a unit quaternion
     or a Gram-Schmidt 6D rotation (JAX regressor.py:22-48).  The hidden
     matmuls run in `compute_dtype`; the heads and the rotation
-    normalisation stay f32."""
+    normalisation stay f32.  Each call is the device region `pose_head`
+    (utils/tracing.py)."""
 
     def __init__(self, in_dim, rot_type='quat', norm_rot=True,
                  compute_dtype=torch.float32):
@@ -39,6 +42,10 @@ class PoseRegressor(nn.Module):
         self.trans_head = nn.Linear(128, 3)
 
     def forward(self, x):
+        x, = tracing.region_begin('pose_head', x)
+        return tracing.region_end('pose_head', *self._regress(x))
+
+    def _regress(self, x):
         cdt = self.compute_dtype
         f = x.to(cdt)
         for layer in self.fc_layers:
@@ -73,6 +80,7 @@ class StochasticPoseRegressor(PoseRegressor):
         self.noise_override = None
 
     def forward(self, x, generator=None):
+        x, = tracing.region_begin('pose_head', x)
         if self.noise_dim > 0:
             if self.noise_override is not None:  # empty: IndexError
                 noise = self.noise_override.pop(0).to(x)
@@ -81,4 +89,4 @@ class StochasticPoseRegressor(PoseRegressor):
                                     generator=generator, device=x.device,
                                     dtype=x.dtype)
             x = torch.cat([x, noise], dim=-1)
-        return super().forward(x)
+        return tracing.region_end('pose_head', *self._regress(x))

@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...utils import tracing
+
 __all__ = ['TransformerEncoder']
 
 
@@ -101,7 +103,8 @@ class _EncoderStack(nn.Module):
 
 class TransformerEncoder(nn.Module):
     """Stacked encoder layers with a final LN in pre-LN mode and, with
-    `out_dim`, a final f32 projection `out_fc` (JAX transformer.py:72-98)."""
+    `out_dim`, a final f32 projection `out_fc` (JAX transformer.py:72-98).
+    Each call is the device region `transformer` (utils/tracing.py)."""
 
     def __init__(self, d_model, num_heads, ffn_dim, num_layers,
                  norm_first=True, dropout=0.1, compute_dtype=torch.float32,
@@ -118,11 +121,12 @@ class TransformerEncoder(nn.Module):
     def forward(self, tokens, valid_masks=None):
         """tokens: [B, T, C]; valid_masks: [B, T], True/1 = valid."""
         key_valid = None if valid_masks is None else valid_masks > 0
-        x = tokens
+        x, = tracing.region_begin('transformer', tokens)
         for layer in self.transformer_encoder.layers:
             x = layer(x, key_valid)
         if self.transformer_encoder.norm is not None:
             x = self.transformer_encoder.norm(x)
         if self.out_fc is not None:
             x = self.out_fc(x)
+        x, = tracing.region_end('transformer', x)
         return x

@@ -18,7 +18,6 @@ import shutil
 import subprocess
 import tempfile
 import threading
-import time
 
 __all__ = ['load_library', 'build_seconds', 'NVCC_FLAGS']
 
@@ -63,6 +62,12 @@ def _bind(lib):
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
     lib.mpa_lap.restype = i
     lib.mpa_lap.argtypes = [p, p, i, i, p]
+    lib.mpa_mark.restype = i
+    lib.mpa_mark.argtypes = [i, p]
+    lib.mpa_mark_count.restype = i
+    lib.mpa_mark_count.argtypes = []
+    lib.mpa_mark_name.restype = ctypes.c_char_p
+    lib.mpa_mark_name.argtypes = [i]
     return lib
 
 
@@ -81,35 +86,42 @@ def _run(commands):
 
 
 def load_library():
-    """The kernels' ctypes library, built from csrc/*.cu on first call."""
+    """The kernels' ctypes library, built from csrc/*.cu on first call
+    (the span `setup.build`, utils/tracing.py)."""
     global _lib, _build_seconds
     if _lib is not None:
         return _lib
+    from ..utils import tracing  # not at import: utils imports ops
     with _lock:
         if _lib is not None:
             return _lib
-        sources = sorted(glob.glob(os.path.join(_CSRC, '*.cu')))
-        digest = hashlib.sha1(' '.join(NVCC_FLAGS).encode())
-        for src in sources:
-            with open(src, 'rb') as f:
-                digest.update(f.read())
-        out = os.path.join(_build_dir(),
-                           f'libmpa_kernels_{digest.hexdigest()[:12]}.so')
-        t0 = time.perf_counter()
-        if not os.path.exists(out):
-            # build in a private directory, then rename: concurrent first
-            # users never load a half-written library
-            with tempfile.TemporaryDirectory(dir=os.path.dirname(out)) as tmp:
-                objs = [os.path.join(tmp, os.path.basename(src) + '.o')
-                        for src in sources]
-                _run([[_nvcc(), *NVCC_FLAGS, '-c', src, '-o', obj]
-                      for src, obj in zip(sources, objs)])
-                lib = os.path.join(tmp, 'lib.so')
-                _run([[_nvcc(), '-shared', *NVCC_FLAGS, '-o', lib, *objs]])
-                os.replace(lib, out)
-        _build_seconds = time.perf_counter() - t0
-        _lib = _bind(ctypes.CDLL(out))
+        with tracing.span('setup.build', always=True) as timer:
+            lib = _bind(ctypes.CDLL(_build()))
+        _build_seconds, _lib = timer.seconds, lib
         return _lib
+
+
+def _build():
+    """The library's path, built first when absent."""
+    sources = sorted(glob.glob(os.path.join(_CSRC, '*.cu')))
+    digest = hashlib.sha1(' '.join(NVCC_FLAGS).encode())
+    for src in sources:
+        with open(src, 'rb') as f:
+            digest.update(f.read())
+    out = os.path.join(_build_dir(),
+                       f'libmpa_kernels_{digest.hexdigest()[:12]}.so')
+    if not os.path.exists(out):
+        # build in a private directory, then rename: concurrent first
+        # users never load a half-written library
+        with tempfile.TemporaryDirectory(dir=os.path.dirname(out)) as tmp:
+            objs = [os.path.join(tmp, os.path.basename(src) + '.o')
+                    for src in sources]
+            _run([[_nvcc(), *NVCC_FLAGS, '-c', src, '-o', obj]
+                  for src, obj in zip(sources, objs)])
+            lib = os.path.join(tmp, 'lib.so')
+            _run([[_nvcc(), '-shared', *NVCC_FLAGS, '-o', lib, *objs]])
+            os.replace(lib, out)
+    return out
 
 
 def build_seconds():

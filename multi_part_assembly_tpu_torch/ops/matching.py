@@ -27,6 +27,7 @@ kernel for it.  `LAUNCHES['lap']` counts L1's launches.
 import numpy as np
 import torch
 
+from ..utils import tracing
 from ..utils.transforms import transform_pc
 from .cuda_build import load_library
 
@@ -212,12 +213,15 @@ def match_parts(part_pcs, pred_trans, pred_rot, gt_trans, gt_rot, match_ids,
         sample_idx = torch.randperm(N, generator=generator,
                                     device=part_pcs.device)[:n_sample]
     pts = part_pcs[:, :, sample_idx.to(part_pcs.device)]  # [B, P, n, 3]
-    pts_pred = transform_pc(pred_trans, pred_rot, pts, rot_type=rot_type)
-    pts_gt = transform_pc(gt_trans, gt_rot, pts, rot_type=rot_type)
-    # a profiler range, so that a trace can give the cost its device time
-    with torch.profiler.record_function('pair_chamfer_cost'):
-        cost = _pair_chamfer_cost(pts_pred, pts_gt)
-    cost = lap_cost(cost, match_ids)
+    # the LAP's cost, a device region of its own (utils/tracing.py)
+    with tracing.region('lap_cost', part_pcs.device):
+        pts_pred = transform_pc(pred_trans, pred_rot, pts,
+                                rot_type=rot_type)
+        pts_gt = transform_pc(gt_trans, gt_rot, pts, rot_type=rot_type)
+        # a profiler range, so that an eager trace can give it its time
+        with torch.profiler.record_function('pair_chamfer_cost'):
+            cost = _pair_chamfer_cost(pts_pred, pts_gt)
+        cost = lap_cost(cost, match_ids)
     perm = solve_lap(cost).long()  # [B, P]
     new_trans = gt_trans.gather(1, perm[..., None].expand(B, P, 3))
     idx = perm.reshape(B, P, *([1] * (gt_rot.dim() - 2)))

@@ -39,11 +39,11 @@ import json
 import os
 import shutil
 import threading
-import time
 
 import torch
 
 from ..parallel import dist
+from ..utils import tracing
 
 __all__ = ['CheckpointManager', 'find_last_ckp', 'load_state', 'STATE_FILE',
            'METRICS_FILE']
@@ -96,7 +96,7 @@ class CheckpointManager:
     MAX_TO_KEEP best by their BEST_KEY metric; saves are asynchronous.
 
     `write_seconds` holds the writer's wall time of each write (waiting
-    for the copies included)."""
+    for the copies included), the span `ckpt.write` (utils/tracing.py)."""
 
     def __init__(self, directory):
         self.directory = os.path.abspath(directory)
@@ -202,18 +202,20 @@ class CheckpointManager:
         return state
 
     def _write(self, step, state, metrics, ready):
-        t0 = time.perf_counter()
-        try:
-            if ready is not None:
-                ready.synchronize()
-                # tensors of their own in the file; the buffer is reused
-                host = self._host.untyped_storage().data_ptr()
-                state = _map(state, lambda t: t.clone() if
-                             t.untyped_storage().data_ptr() == host else t)
-            self._save(step, state, metrics)
-        except Exception as e:  # raised by wait_until_finished
-            self._error = e
-        self.write_seconds.append(time.perf_counter() - t0)
+        with tracing.span('ckpt.write', timed=True, epoch=step) as timer:
+            try:
+                if ready is not None:
+                    ready.synchronize()
+                    # tensors of their own in the file; the buffer is
+                    # reused
+                    host = self._host.untyped_storage().data_ptr()
+                    state = _map(state, lambda t: t.clone() if
+                                 t.untyped_storage().data_ptr() == host
+                                 else t)
+                self._save(step, state, metrics)
+            except Exception as e:  # raised by wait_until_finished
+                self._error = e
+        self.write_seconds.append(timer.seconds)
 
     def wait_until_finished(self):
         """Block until the pending save is on disk, then a barrier of every

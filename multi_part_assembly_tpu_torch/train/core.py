@@ -14,6 +14,7 @@ import torch
 
 from ..models.modules.norm import MaskedBatchNorm
 from ..ops.matching import match_parts
+from ..utils import tracing
 from ..utils.eval_utils import (calc_connectivity_acc, calc_part_acc,
                                 rot_metrics, trans_metrics)
 from ..utils.loss import (rot_cosine_loss, rot_points_cd_loss,
@@ -53,10 +54,11 @@ def calc_loss(pred_rot_raw, pred_trans, data_dict, *, rot_type, semantic,
     new_trans = data_dict['part_trans'].detach()
     new_rot_raw = data_dict['part_rot_raw'].detach()
     if semantic:
-        new_trans, new_rot_raw = match_parts(
-            part_pcs, pred_trans, pred_rot.rot, new_trans, new_rot_raw,
-            data_dict['match_ids'], rot_type, generator=generator,
-            sample_idx=None if match_idx is None else next(match_idx))
+        with tracing.region('matching', part_pcs.device):
+            new_trans, new_rot_raw = match_parts(
+                part_pcs, pred_trans, pred_rot.rot, new_trans, new_rot_raw,
+                data_dict['match_ids'], rot_type, generator=generator,
+                sample_idx=None if match_idx is None else next(match_idx))
     new_rot = Rotation3D(new_rot_raw, rot_type)
 
     loss_dict = {
@@ -97,17 +99,20 @@ def _bn_buffers(model):
 
 def loss_one_sample(pred, data_dict, **kw):
     """Losses of one sample; a multi-step prediction [T, B, P, ...] sums its
-    steps and logs each as `{k}_{i}` (JAX core.py:111-140)."""
-    rot, trans = pred['rot'], pred['trans']
+    steps and logs each as `{k}_{i}` (JAX core.py:111-140).  The device
+    region `loss` (utils/tracing.py)."""
+    rot, trans = tracing.region_begin('loss', pred['rot'], pred['trans'])
     if trans.dim() != 4:
-        return calc_loss(rot, trans, data_dict, **kw)
-    all_loss = {}
-    for i in range(trans.shape[0]):
-        ld = calc_loss(rot[i], trans[i], data_dict, **kw)
-        for k, v in ld.items():
-            all_loss[k] = all_loss.get(k, 0.0) + v
-            all_loss[f'{k}_{i}'] = v
-    return all_loss
+        all_loss = calc_loss(rot, trans, data_dict, **kw)
+    else:
+        all_loss = {}
+        for i in range(trans.shape[0]):
+            ld = calc_loss(rot[i], trans[i], data_dict, **kw)
+            for k, v in ld.items():
+                all_loss[k] = all_loss.get(k, 0.0) + v
+                all_loss[f'{k}_{i}'] = v
+    return dict(zip(all_loss, tracing.region_end('loss',
+                                                 *all_loss.values())))
 
 
 def mon_loss(model, data_dict, *, cfg, training, reduce=True,

@@ -39,11 +39,10 @@ state and generator states are put back bitwise, so the first step a caller
 asks for is already a replay.
 """
 
-import time
-
 import torch
 
 from ..parallel import dist
+from ..utils import tracing
 from .core import mon_loss
 from .state import clip_gradients
 
@@ -102,11 +101,13 @@ def step_vector(model, optimizer, cfg, data, generator=None):
     (JAX parallel/mesh.py:122-140 and `_stack_dict` :178-189).  Nothing in
     it waits for the device on one rank."""
     model.train()
+    tracing.clear_backward()
     loss, logs = mon_loss(model, data, cfg=cfg, training=True,
                           generator=generator)
     optimizer.zero_grad(set_to_none=True)
     if loss.requires_grad:  # identity's loss needs no gradient
         loss.backward()
+        tracing.end_backward()
     # JAX differentiates every parameter: one the loss does not reach
     # (identity's dummy, LSTM's stop-sign head) takes a zero gradient,
     # and Adam counts the step for it as optax does
@@ -115,8 +116,9 @@ def step_vector(model, optimizer, cfg, data, generator=None):
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     dist.average_gradients(params)
-    clip_gradients(cfg, model)  # the global gradient, as JAX clips
-    optimizer.step()
+    with tracing.region('optimizer', params[0].device):
+        clip_gradients(cfg, model)  # the global gradient, as JAX clips
+        optimizer.step()
     keys = sorted(logs)
     values = torch.stack([logs[k].detach().float() for k in keys])
     if dist.world() > 1:
@@ -138,7 +140,8 @@ class CompiledStep:
     Counters for the callers' checks: `traced`, the bodies run in Python
     (warm-ups and captures: the launch counters of the kernels' wrappers
     count these, not replays); `replays`; `captures`, and `capture_seconds`
-    their wall time, warm-ups included."""
+    their wall time, warm-ups included (the `setup.capture` spans,
+    utils/tracing.py)."""
 
     def __init__(self, body, model, optimizer, generator):
         self.body = body
@@ -211,7 +214,12 @@ class CompiledStep:
         return list(self.model.parameters()) + list(self.model.buffers())
 
     def _capture(self, batch):
-        t0 = time.perf_counter()
+        with tracing.span('setup.capture', always=True) as timer:
+            self._capture_graph(batch)
+        self.captures += 1
+        self.capture_seconds += timer.seconds
+
+    def _capture_graph(self, batch):
         self.release()
         self.static_in = {k: v.clone() for k, v in batch.items()}
         snap = self._snapshot()
@@ -235,5 +243,3 @@ class CompiledStep:
             out = self.body(self.static_in)
         self.traced += 1
         self.graph, self.static_out = graph, out
-        self.captures += 1
-        self.capture_seconds += time.perf_counter() - t0

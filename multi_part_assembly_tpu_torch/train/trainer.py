@@ -59,6 +59,7 @@ from ..datasets.part_table import gather_part_table
 from ..datasets.partnet import enable_device_table
 from ..models import build_model
 from ..parallel import dist
+from ..utils import tracing
 from .checkpoint import CheckpointManager, load_state
 from .core import mon_loss
 from .state import build_optimizer, set_lr
@@ -370,21 +371,24 @@ class Trainer:
 
     def _build_loaders(self, cfg):
         """The loaders, their wires, and their placement stage."""
-        self.train_loader, self.val_loader = build_dataloader(cfg)
+        with tracing.span('setup.data', always=True):
+            self.train_loader, self.val_loader = build_dataloader(cfg)
         loaders = (('train', self.train_loader), ('val', self.val_loader))
         # the slot wires, per split (None = the host wire): geometric
         # sampling tables, or PartNet's resident point table
         self.tables = {'train': None, 'val': None}
         self.part_tables = {'train': None, 'val': None}
-        if cfg.data.dataset == 'geometry':
-            if device_sampling_enabled(cfg, self.device):
-                self.tables = {
-                    name: enable_device_sampling(loader, cfg, self.device)
+        with tracing.span('setup.tables', always=True):
+            if cfg.data.dataset == 'geometry':
+                if device_sampling_enabled(cfg, self.device):
+                    self.tables = {
+                        name: enable_device_sampling(loader, cfg,
+                                                     self.device)
+                        for name, loader in loaders}
+            elif device_table_enabled(cfg, self.device):
+                self.part_tables = {
+                    name: enable_device_table(loader, cfg, self.device)
                     for name, loader in loaders}
-        elif device_table_enabled(cfg, self.device):
-            self.part_tables = {
-                name: enable_device_table(loader, cfg, self.device)
-                for name, loader in loaders}
         for _, loader in loaders:
             loader.transform = DevicePlacement(cfg, self.device)
 
@@ -476,10 +480,12 @@ class Trainer:
         if 'part_pcs_raw' not in batch:
             return batch
         batch = dict(batch)
-        aug = augment_geometry_batch(
-            batch.pop('part_pcs_raw'), batch['part_valids'],
-            self.generator if generator is None else generator,
-            rot_range=float(self.cfg.data.get('rot_range', -1.0)))
+        raw = batch.pop('part_pcs_raw')
+        with tracing.region('augment', raw.device):
+            aug = augment_geometry_batch(
+                raw, batch['part_valids'],
+                self.generator if generator is None else generator,
+                rot_range=float(self.cfg.data.get('rot_range', -1.0)))
         return {**batch, **aug}
 
     def _augment(self, batch, generator=None):
@@ -510,30 +516,33 @@ class Trainer:
         group of replays, or eager steps, without waiting for the device,
         their logs buffered.  A step that captures the graph synchronises
         and is timed as a window of its own."""
-        rows, lrs = None, []
-        first = self.step
-        for g, batch in enumerate(batches):
-            lr = self.lr_schedule(self.step)
-            lrs.append(lr)
-            set_lr(self.optimizer, lr)
-            data = self._device_batch(batch)
-            capture = self.compiled is not None and \
-                self.compiled.needs_capture(data)
-            if capture:
-                self._close_window()
-            if self._window is None:
-                self._window = [time.perf_counter(), 0]
-            values = self._step_vector(data) if self.compiled is None \
-                else self.compiled(data)
-            if rows is None:
-                rows = values.new_empty((len(batches), values.shape[0]))
-            rows[g].copy_(values)
-            self.step += 1
-            self._window[1] += 1
-            if capture:
-                self._close_window()
-        steps = tuple(range(first + 1, self.step + 1))
-        self._log_buf.append((rows, steps, lrs, sum(waits)))
+        with tracing.span('train.dispatch', step=self.step + 1,
+                          steps=len(batches)):
+            rows, lrs = None, []
+            first = self.step
+            for g, batch in enumerate(batches):
+                lr = self.lr_schedule(self.step)
+                lrs.append(lr)
+                set_lr(self.optimizer, lr)
+                data = self._device_batch(batch)
+                tracing.count('step.slots', data['part_valids'].numel())
+                capture = self.compiled is not None and \
+                    self.compiled.needs_capture(data)
+                if capture:
+                    self._close_window()
+                if self._window is None:
+                    self._window = [time.perf_counter(), 0]
+                values = self._step_vector(data) if self.compiled is None \
+                    else self.compiled(data)
+                if rows is None:
+                    rows = values.new_empty((len(batches), values.shape[0]))
+                rows[g].copy_(values)
+                self.step += 1
+                self._window[1] += 1
+                if capture:
+                    self._close_window()
+            steps = tuple(range(first + 1, self.step + 1))
+            self._log_buf.append((rows, steps, lrs, sum(waits)))
 
     def _close_window(self):
         """Synchronise and give each step of the open window its mean wall
@@ -553,23 +562,27 @@ class Trainer:
         row a step, and close the timing window (JAX trainer.py:700-743).
         A group's data wait is spread over its steps.  Returns the last
         step's logs, or None when nothing was buffered."""
-        if not self._log_buf:
+        with tracing.span('train.flush', steps=self._buffered_steps()):
+            if not self._log_buf:
+                self._close_window()
+                return None
+            mats = torch.cat([rows for rows, _, _, _ in self._log_buf])
+            with tracing.span('train.flush.fetch'):
+                table = mats.tolist()  # the one fetch: it synchronises
             self._close_window()
-            return None
-        mats = torch.cat([rows for rows, _, _, _ in self._log_buf])
-        table = mats.tolist()  # the one fetch: it synchronises
-        self._close_window()
-        last, i = None, 0
-        for _, steps, lrs, wait in self._log_buf:
-            for step_no, lr in zip(steps, lrs):
-                logs = dict(zip(self._log_keys, table[i]))
-                logs['lr'] = lr
-                logs['data_time'] = wait / len(steps)
-                self.logger.log({f'train/{k}': v for k, v in logs.items()},
-                                step=step_no)
-                last, i = logs, i + 1
-        self._log_buf.clear()
-        return last
+            last, i = None, 0
+            with tracing.span('train.flush.write'):
+                for _, steps, lrs, wait in self._log_buf:
+                    for step_no, lr in zip(steps, lrs):
+                        logs = dict(zip(self._log_keys, table[i]))
+                        logs['lr'] = lr
+                        logs['data_time'] = wait / len(steps)
+                        self.logger.log(
+                            {f'train/{k}': v for k, v in logs.items()},
+                            step=step_no)
+                        last, i = logs, i + 1
+            self._log_buf.clear()
+            return last
 
     def train_epoch(self, epoch):
         """One epoch of dispatch-only steps (JAX trainer.py:745-790):
@@ -577,19 +590,35 @@ class Trainer:
         steps queued back to back; the tail of an epoch that does not fill
         a group runs as single steps.  Logs are flushed every
         `LOG_FLUSH_STEPS` steps and at the end.  Returns the last step's
-        logs (None for an empty epoch)."""
+        logs (None for an empty epoch).  The spans `train.epoch`, and
+        `train.gather` for the taking of a group's batches
+        (utils/tracing.py)."""
+        with tracing.span('train.epoch', epoch=epoch):
+            return self._train_epoch(epoch)
+
+    def _train_epoch(self, epoch):
         self.train_loader.set_epoch(epoch)
         group, waits = [], []
+        gather = tracing.span('train.gather', epoch=epoch,
+                              step=self.step + 1)
+        gather.__enter__()
         t_last = time.perf_counter()
-        for batch in self.train_loader:
-            waits.append(time.perf_counter() - t_last)
-            group.append(batch)
-            if len(group) == self.steps_per_call:
-                self._dispatch(group, waits)
-                group, waits = [], []
-                if self._buffered_steps() >= self.LOG_FLUSH_STEPS:
-                    self._flush_train_logs()
-            t_last = time.perf_counter()
+        try:
+            for batch in self.train_loader:
+                waits.append(time.perf_counter() - t_last)
+                group.append(batch)
+                if len(group) == self.steps_per_call:
+                    gather.__exit__(None, None, None)
+                    self._dispatch(group, waits)
+                    group, waits = [], []
+                    if self._buffered_steps() >= self.LOG_FLUSH_STEPS:
+                        self._flush_train_logs()
+                    gather = tracing.span('train.gather', epoch=epoch,
+                                          step=self.step + 1)
+                    gather.__enter__()
+                t_last = time.perf_counter()
+        finally:
+            gather.__exit__(None, None, None)
         for batch, wait in zip(group, waits):  # the tail, step by step
             self._dispatch([batch], [wait])
         return self._flush_train_logs()

@@ -38,8 +38,10 @@ prints, logs and writes checkpoints.
 """
 
 import argparse
+import json
 import os
 import sys
+import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -100,15 +102,26 @@ def build_cfg(args):
 
 
 def profile_epoch(trainer, out_dir):
-    """One epoch under torch.profiler, its trace in out_dir/trace.json."""
+    """One epoch under torch.profiler, its trace in out_dir/trace.json
+    and the program's spans and counters of the epoch (every thread's,
+    utils/tracing.py) in out_dir/spans.json."""
     from torch.profiler import ProfilerActivity, profile
+
+    from multi_part_assembly_tpu_torch.utils import tracing
     acts = [ProfilerActivity.CPU]
     if trainer.device.type == 'cuda':
         acts.append(ProfilerActivity.CUDA)
+    t0, counts = time.time_ns(), tracing.counters()
     with profile(activities=acts) as prof:
         trainer.train_epoch(trainer.start_epoch)
     os.makedirs(out_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out_dir, 'trace.json'))
+    after = tracing.counters()
+    with open(os.path.join(out_dir, 'spans.json'), 'w') as f:
+        json.dump({'spans': [s.as_dict() for s in tracing.spans()
+                             if s.start_ns >= t0],
+                   'counters': {k: v - counts.get(k, 0)
+                                for k, v in after.items()}}, f)
     print(f'profile trace written to {out_dir}', flush=True)
 
 

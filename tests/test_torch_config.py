@@ -81,6 +81,7 @@ import multi_part_assembly_tpu_torch.parallel
 import multi_part_assembly_tpu_torch.parallel.dist
 import train_torch, test_torch, e2e_check_torch
 import print_cfg_torch, vis_torch, collect_test_torch, profile_summary_torch
+import multi_part_assembly_tpu_torch.utils.tracing
 from multi_part_assembly_tpu_torch.utils.rotation import Rotation3D
 B, N = 2, 16
 for rot_type, rot_dim in (('quat', 4), ('rmat', 6)):

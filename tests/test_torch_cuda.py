@@ -738,3 +738,65 @@ def test_graph_replays_equal_eager_steps(cuda, tmp_path, sampling):
     assert [n for n, _ in states[0]] == [n for n, _ in states[1]]
     for (name, a), (_, b) in zip(*states):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_replay_emits_the_captured_marks_in_order(cuda, tmp_path,
+                                                  monkeypatch):
+    """The region marks (utils/tracing.py, csrc/marks.cu) survive the
+    graph: one replay launches each mark the captured body launched, once
+    and in the same order (each region's begin closed by its end, the
+    flagship's regions and their backward), and the two warm-up bodies
+    launched the same.  The replays are bitwise the eager steps
+    (`test_graph_replays_equal_eager_steps`, marks included)."""
+    from multi_part_assembly_tpu_torch.utils import tracing
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), 'scripts'))
+    from make_synthetic_data import generate
+    os.environ['MPA_MESH_CACHE_DIR'] = str(tmp_path / 'mesh_cache')
+    synth = generate(str(tmp_path / 'data'), n_shapes=8, min_parts=2,
+                     max_parts=6, seed=0)
+    graph, eager = _graph_trainers(synth, tmp_path,
+                                   ['data.device_sampling', 'True'])
+    eager.close()
+    launched = []
+    launch = tracing._launch
+
+    def spy(edge, device):
+        launched.append(edge)
+        launch(edge, device)
+    monkeypatch.setattr(tracing, '_launch', spy)
+    loader = graph.train_loader
+    loader.set_epoch(0)
+    it = iter(loader)
+    graph._dispatch([next(it)], [0.0])  # two warm-ups and the capture
+    n = len(launched) // 3
+    body = launched[2 * n:]
+    assert launched == body * 3 and n > 0
+    batch = next(it)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        graph._dispatch([batch], [0.0])
+        torch.cuda.synchronize()
+    it.close()
+    events = sorted((ev.start_ns(), ev.name())
+                    for ev in prof.profiler.kineto_results.events()
+                    if 'mpa_mark_' in ev.name())
+    replayed = [name.split('mpa_mark_')[1].split('(')[0]
+                for _, name in events]
+    assert graph.compiled.replays == 2 and graph.compiled.captures == 1
+    assert replayed == body
+    stack, regions = [], set()
+    for edge in body:
+        region, what = edge.rsplit('_', 1)
+        if what == 'begin':
+            stack.append(region)
+            regions.add(region)
+        else:
+            assert stack.pop() == region
+    assert not stack
+    assert regions == {'augment', 'encoder', 'masked_bn', 'transformer',
+                       'pose_head', 'loss', 'loss_bwd', 'pose_head_bwd',
+                       'transformer_bwd', 'encoder_bwd', 'masked_bn_bwd',
+                       'optimizer'}
+    graph.close()

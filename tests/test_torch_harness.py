@@ -129,6 +129,80 @@ def test_profile_summary_torch_counts_device_time():
     assert s['idle_share'] == pytest.approx(13.0 / 40.0)
 
 
+CPU_PROFILER_CLOCK_US = 5000
+
+
+def test_profile_writes_the_programs_spans(run, capsys):
+    """The `--profile` epoch's own spans of every thread and its counters
+    beside the trace, on the trace's clock; the summary lists them."""
+    import json
+
+    import profile_summary_torch
+    _, run_dir, _ = run
+    folder = os.path.join(run_dir, 'profile')
+    with open(os.path.join(folder, 'spans.json')) as f:
+        record = json.load(f)
+    names = {s['name'] for s in record['spans']}
+    assert {'data.collate', 'data.place', 'data.wait', 'data.epoch_start',
+            'train.dispatch', 'train.flush'} <= names
+    assert record['counters']['data.batches'] == 2
+    assert record['counters']['step.slots'] == 2 * 2 * 5
+    spans = profile_summary_torch.load_spans(folder)
+    events = profile_summary_torch.load_events(folder)
+    dispatch = [e for e in events if e['name'] == 'train.dispatch']
+    ours = [s for s in spans if s['name'] == 'train.dispatch']
+    assert len(dispatch) == len(ours) == 2
+    # one clock: the span and its profiler range agree up to the CPU
+    # profiler's conversion of its own clock to Unix time, which swings by
+    # up to about 1 ms against time.time_ns() (on the card the two agree
+    # within 0.05 ms); any other clock would be off by far more
+    for e, s in zip(sorted(dispatch, key=lambda e: e['ts']), ours):
+        assert abs(e['ts'] - s['ts']) < CPU_PROFILER_CLOCK_US
+        assert abs(e['dur'] - s['dur']) < CPU_PROFILER_CLOCK_US
+    s = profile_summary_torch.main([folder])
+    assert s['spans']['train.dispatch'][0] == 2
+    assert s['counters'] == record['counters']
+    assert s['valid_share'] == pytest.approx(
+        record['counters']['data.valid_parts'] / (2 * 2 * 5))
+    out = capsys.readouterr().out
+    assert 'program span' in out and 'data.starved' in out
+
+
+def test_profile_summary_regions_and_gaps():
+    """Regions between the marks' kernels, nested, per step; the share of
+    the busy time inside the outermost; the longest idle gaps named by the
+    training thread's innermost span that covers most of them."""
+    from profile_summary_torch import summarize
+
+    def k(name, ts, dur):
+        return {'ph': 'X', 'cat': 'kernel', 'name': name, 'ts': ts,
+                'dur': dur}
+    events = [k('mpa_mark_encoder_begin()', 0, 1),
+              k('mpa_mark_masked_bn_begin', 2, 1), k('bn', 3, 4),
+              k('mpa_mark_masked_bn_end', 7, 1),
+              k('mpa_mark_encoder_end', 9, 1), k('other', 10, 10),
+              k('mpa_mark_optimizer_begin', 20, 1), k('adam', 21, 2),
+              k('mpa_mark_optimizer_end', 23, 1), k('late', 2030, 10)]
+    spans = [{'name': 'train.flush', 'thread': 'MainThread', 'ts': 25,
+              'dur': 2000},
+             {'name': 'train.flush.write', 'thread': 'MainThread',
+              'ts': 30, 'dur': 1990},
+             {'name': 'data.collate', 'thread': 'loader-collate', 'ts': 0,
+              'dur': 3000}]
+    s = summarize(events, program_spans=spans, steps=2)
+    assert s['regions'] == {'encoder': (8e-3 / 2, 1),
+                            'masked_bn': (4e-3 / 2, 1),
+                            'optimizer': (2e-3 / 2, 1)}
+    # busy 2-8 and 9-23 between the first region's start and the last's
+    # end, 2-8 and 21-23 inside the outermost regions
+    assert s['region_cover'] == pytest.approx((6 + 2) / 20)
+    gap_start, ms, under, label, others = s['gaps'][0]
+    assert (gap_start, ms, label) == (24, 2.006, 'train.flush.write')
+    assert others == {'loader-collate': 'data.collate'}
+    assert under == pytest.approx(2000 / 2006)
+    assert s['spans']['data.collate'] == (1, 3.0, 3.0)
+
+
 def test_gpu_run_sh_parses():
     proc = subprocess.run(['bash', '-n', os.path.join(ROOT, 'scripts',
                                                       'gpu_run.sh')],
