@@ -44,9 +44,8 @@ class NodeMLP(nn.Module):
         x = x.to(self.compute_dtype)
         for i in range(1, 4):
             x = _linear(x, getattr(self, f'conv{i}'), self.compute_dtype)
-            x = getattr(self, f'bn{i}')(x, None)
-            if i < 3 or self.final_relu:
-                x = F.relu(x)
+            x = getattr(self, f'bn{i}')(x, None,
+                                        relu=i < 3 or self.final_relu)
         return x.float()
 
 

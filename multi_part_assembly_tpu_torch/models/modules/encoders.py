@@ -32,7 +32,8 @@ class PointNet(nn.Module):
     The layers are Conv1d(k=1) modules, as in the torch reference, so its
     weights load by name; they run channels-last as one matmul over
     [..., N, C].  The matmuls run in `compute_dtype`; BN statistics and the
-    pooled output are f32.
+    pooled output are f32.  Each ReLU runs inside its batch norm's call
+    (`relu=True`), on the card in the same kernel.
     """
 
     def __init__(self, feat_dim, compute_dtype=torch.float32):
@@ -53,9 +54,7 @@ class PointNet(nn.Module):
         for i in range(1, 6):
             w = getattr(self, f'conv{i}').weight[:, :, 0]
             x = F.linear(x, w.to(cdt))
-            x = getattr(self, f'bn{i}')(x, point_mask)
-            if i < 5:
-                x = F.relu(x)
+            x = getattr(self, f'bn{i}')(x, point_mask, relu=i < 5)
         return x.float().amax(dim=-2)
 
 

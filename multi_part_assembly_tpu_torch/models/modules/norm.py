@@ -35,6 +35,19 @@ per-replica groups do (norm.py:117-121), so every rank keeps the same
 ones.  Injected statistics are the caller's to reduce; they override
 per-replica mode with a warning, as in JAX (norm.py:79-86).  With one
 rank nothing is reduced and the numerics are those above, bit for bit.
+
+Two routes, picked by the function a call asks for (`MaskedBatchNorm.route`),
+never by its layout: on a CUDA tensor, train mode on one rank or per
+replica computes its moments and applies them, with the ReLU that follows
+where `relu`, on the kernels of csrc/masked_bn.cu (x made contiguous and
+aligned, the mask one weight a run of consecutive rows; a type, channel
+count or row count the kernels do not take raises, ops/masked_bn.py
+`_rows`); eval mode, the lean layers, injected statistics, the affine
+alone, sync BN over several ranks and the CPU take the plain PyTorch
+arithmetic (ops/masked_bn.py `moments_plain`, `affine`,
+`normalize_plain`).  The running statistics update from either route's
+moments by the same expressions.  Each call on a CUDA tensor counts
+`bn.fused` or `bn.plain` (utils/tracing.py).
 """
 
 import contextlib
@@ -44,6 +57,7 @@ import warnings
 import torch
 from torch import nn
 
+from ...ops import masked_bn as MB
 from ...parallel.dist import all_reduce_, all_reduce_sum, world
 from ...utils import tracing
 
@@ -131,23 +145,44 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer('running_mean', torch.zeros(num_features))
         self.register_buffer('running_var', torch.ones(num_features))
 
-    def forward(self, x, mask=None, stats=None, affine_only=False):
-        """Normalise x, or return the affine (factor, offset), each [C] f32,
-        when `affine_only` (x then only gives the channel count).
+    def forward(self, x, mask=None, stats=None, affine_only=False,
+                relu=False):
+        """Normalise x, then apply the ReLU when `relu`; or return the
+        affine (factor, offset), each [C] f32, when `affine_only` (x then
+        only gives the channel count).
 
         stats: (mean, var, denom) the caller computed ([C], [C], scalar,
             f32), used in train mode instead of x's moments; the running
             statistics update once from them (JAX norm.py:56-68,
             :129-136).  With several ranks they must be global."""
         x, = tracing.region_begin('masked_bn', x)
-        out = self._normalize(x, mask, stats, affine_only)
+        out = self._normalize(x, mask, stats, affine_only, relu)
         if affine_only:
             return tracing.region_end('masked_bn', *out)
         out, = tracing.region_end('masked_bn', out)
         return out
 
-    def _normalize(self, x, mask, stats, affine_only):
+    def route(self, x, stats=None, affine_only=False):
+        """'fused' (the kernels compute the moments and apply them) or
+        'plain' (the PyTorch arithmetic), from the function the call asks
+        for: the kernels take train mode on a CUDA tensor with its own
+        moments on one rank or per replica; eval mode, the lean layers,
+        injected statistics, the affine alone and sync BN over several
+        ranks stay plain."""
+        if not x.is_cuda or not self.training or self.lean or \
+                affine_only or stats is not None or \
+                (self.sync and world() > 1):
+            return 'plain'
+        return 'fused'
+
+    def _normalize(self, x, mask, stats, affine_only, relu):
         """`forward` without its marks."""
+        route = self.route(x, stats, affine_only)
+        if x.is_cuda:
+            tracing.count('bn.' + route)
+        if route == 'fused':
+            x = MB.kernel_rows(x)
+            w, fan = MB.row_weights(mask, x.shape)
         if self.training:
             ranks = world() > 1
             sync, replica = self.sync and ranks, not self.sync and ranks
@@ -157,12 +192,14 @@ class MaskedBatchNorm(nn.Module):
                                   'the per-replica BN groups; using sync '
                                   'statistics')
                 mean, var, denom = stats
+            elif route == 'fused':
+                mean, var, denom = MB.moments_cuda(x, w, fan)
             elif self.lean:
                 mean, var, denom = self._lean_moments(x, mask, sync)
             elif sync:
                 mean, var, denom = self._sync_moments(x, mask)
             else:
-                mean, var, denom = self._moments(x, mask)
+                mean, var, denom = MB.moments_plain(x, mask)
             if not _FROZEN[0]:
                 with torch.no_grad():
                     mean_track = mean
@@ -179,33 +216,18 @@ class MaskedBatchNorm(nn.Module):
                         (1.0 - m) * self.running_var + m * var_track)
         else:
             mean, var = self.running_mean, self.running_var
-        rstd = torch.rsqrt(var + self.eps)
+        if route == 'fused':
+            return MB.masked_bn(x, self.weight, self.bias, mean, var,
+                                self.eps, relu, w, fan, denom)
+        _, factor, offset = MB.affine(self.weight, self.bias, mean, var,
+                                      self.eps)
         if affine_only:
-            return self.weight * rstd, self.bias - mean * self.weight * rstd
-        factor = (self.weight * rstd).to(x.dtype)
-        offset = (self.bias - mean * self.weight * rstd).to(x.dtype)
-        return x * factor + offset
-
-    @staticmethod
-    def _moments(x, mask):
-        xs = x.float()  # statistics in f32, even for bf16 activations
-        dims = tuple(range(x.dim() - 1))
-        if mask is None:
-            mean = xs.mean(dims)
-            var = ((xs - mean)**2).mean(dims)
-            denom = torch.full((), float(math.prod(x.shape[:-1])),
-                               dtype=xs.dtype, device=xs.device)
-        else:
-            w = mask[..., None].float()
-            fan = math.prod(xs.shape[:-1]) // math.prod(w.shape[:-1])
-            denom = torch.clamp(w.sum() * fan, min=1.0)
-            mean = (xs * w).sum(dims) / denom
-            var = (w * (xs - mean)**2).sum(dims) / denom
-        return mean, var, denom
+            return factor, offset
+        return MB.normalize_plain(x, factor, offset, relu)
 
     @staticmethod
     def _sync_moments(x, mask):
-        """`_moments` over the global batch: the sums of w x and of w
+        """`moments_plain` over the global batch: the sums of w x and of w
         all-reduced, then the sum of w (x - mean)^2, differentiably."""
         xs = x.float()
         dims = tuple(range(x.dim() - 1))

@@ -62,6 +62,16 @@ def _bind(lib):
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
     lib.mpa_lap.restype = i
     lib.mpa_lap.argtypes = [p, p, i, i, p]
+    q = ctypes.c_longlong
+    lib.mpa_bn_parts.restype = i
+    lib.mpa_bn_parts.argtypes = [q, i]
+    lib.mpa_bn_moments.restype = i
+    lib.mpa_bn_moments.argtypes = [p, p, q, i, q, i, p, p, p, p, p]
+    lib.mpa_bn_apply.restype = i
+    lib.mpa_bn_apply.argtypes = [p, p, p, p, q, i, i, i, p]
+    lib.mpa_bn_backward.restype = i
+    lib.mpa_bn_backward.argtypes = [p] * 5 + [q] + [p] * 4 + [q, i, i, i] + \
+        [p] * 5
     lib.mpa_mark.restype = i
     lib.mpa_mark.argtypes = [i, p]
     lib.mpa_mark_count.restype = i

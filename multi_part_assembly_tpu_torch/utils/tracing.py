@@ -23,7 +23,8 @@ Names in use (docs/torch_port.md, "Tracing"): spans `data.collate`,
 `train.epoch`, `train.gather`, `train.dispatch`, `train.flush`
 (`train.flush.fetch`, `train.flush.write`), `setup.data`,
 `setup.tables`, `setup.capture`, `setup.build`, `ckpt.write`; counters
-`data.batches`, `data.starved`, `data.valid_parts`, `step.slots`.
+`data.batches`, `data.starved`, `data.valid_parts`, `step.slots`,
+`bn.fused`, `bn.plain`.
 
 Region marks.  Host ranges do not survive a CUDA graph's replay, so the
 step marks its regions on the device: `region_begin(name, *tensors)` and

@@ -800,3 +800,249 @@ def test_replay_emits_the_captured_marks_in_order(cuda, tmp_path,
                        'transformer_bwd', 'encoder_bwd', 'masked_bn_bwd',
                        'optimizer'}
     graph.close()
+
+
+# ---------------------------------------------------------------------------
+# masked batch norm (ops/masked_bn.py, csrc/masked_bn.cu)
+# ---------------------------------------------------------------------------
+
+# everyday-like part-count mix (bench.py's GEOMETRY_PART_POOL)
+_PART_POOL = [2, 2, 2, 3, 3, 3, 3, 4, 4, 4, 5, 5, 6, 6, 7, 8, 10, 12, 16, 20]
+# name -> (shape, masked): the flagship PointNet's layers at batch 32
+# ([B, P, N, C], one weight a cloud), and a DGL node MLP's ([B, P, C], no
+# mask)
+BN_CASES = {'pointnet64': ((32, 20, 1000, 64), True),
+            'pointnet128': ((32, 20, 1000, 128), True),
+            'pointnet256': ((32, 20, 1000, 256), True),
+            'dgl512': ((32, 20, 512), False)}
+
+
+def _bn_inputs(device, shape, masked, counts=None, seed=0):
+    """bf16 activations x (padded clouds filled with 3e4, which must not
+    enter the moments), the mask [B, P, 1] (None unmasked), f32 weight and
+    bias, and a bf16 cotangent."""
+    rng = np.random.RandomState(seed)
+    B, P, C = shape[0], shape[1], shape[-1]
+    x = torch.tensor(rng.randn(*shape).astype(np.float32) * 1.5 + 0.3)
+    mask = None
+    if masked:
+        if counts is None:
+            counts = rng.choice(_PART_POOL, B)
+        valid = torch.tensor((np.arange(P)[None] <
+                              np.asarray(counts)[:, None]).astype(np.float32))
+        x = torch.where(valid[:, :, None, None] > 0, x,
+                        torch.full_like(x, 3e4))
+        mask = valid[..., None].to(device)
+    weight = torch.tensor(rng.uniform(0.5, 1.5, C).astype(np.float32))
+    bias = torch.tensor(0.1 * rng.randn(C).astype(np.float32))
+    dy = torch.tensor(rng.randn(*shape).astype(np.float32))
+    return (x.to(device, torch.bfloat16).contiguous(), mask, weight.to(device),
+            bias.to(device), dy.to(device, torch.bfloat16))
+
+
+def _bn_kernel_grads(x, mask, weight, bias, dy, moments, relu):
+    """(dx, dweight, dbias) through the kernels' autograd function with the
+    given (mean, var, denom)."""
+    from multi_part_assembly_tpu_torch.ops import masked_bn as MB
+    w, fan = MB.row_weights(mask, x.shape)
+    xk = x.clone().requires_grad_(True)
+    wk, bk = (t.clone().requires_grad_(True) for t in (weight, bias))
+    mean, var, denom = moments
+    y = MB.masked_bn(xk, wk, bk, mean, var, 1e-5, relu, w, fan, denom)
+    y.backward(dy)
+    return xk.grad, wk.grad, bk.grad
+
+
+def _bn_f32_grads(x, mask, weight, bias, dy, relu):
+    """Autograd of the plain formulas in f32, the forward's bf16 roundings
+    taken as identities of the gradient (as autograd takes a cast): its
+    ReLU sees the forward's bf16 values."""
+    from multi_part_assembly_tpu_torch.ops import masked_bn as MB
+    xf = x.float().requires_grad_(True)
+    wf, bf = (t.clone().requires_grad_(True) for t in (weight, bias))
+    mean, var, _ = MB.moments_plain(xf, mask)
+    _, factor, offset = MB.affine(wf, bf, mean, var, 1e-5)
+    z = xf * factor + offset
+    z = z + (MB.normalize_plain(x, factor, offset).float() - z).detach()
+    (torch.relu(z) if relu else z).backward(dy.float())
+    return xf.grad, wf.grad, bf.grad
+
+
+def _rel(a, b):
+    return float((a.float() - b).norm() / b.norm().clamp(min=1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(BN_CASES))
+def test_masked_bn_kernels_match_plain(cuda, case):
+    """The masked batch norm's kernels against the plain version at the
+    flagship's shapes, padded clouds filled with 3e4.  The apply kernel,
+    given the plain path's factor and offset, equals x * factor + offset
+    (then the ReLU) in bf16 bit for bit: the same roundings.  The moments
+    within 1e-6 relative of the plain two-pass f32 ones (the mean relative
+    to |mean| + std, the scale it is read at): both are f32 sums in other
+    orders.  dx within 2^-8 relative L2 of autograd of the plain formulas
+    in f32: the kernel multiplies by the forward's bf16 factor and rounds
+    dx to bf16 once, each 2^-9 at most; d(weight) and d(bias) within 1e-4:
+    f32 sums over 640,000 rows in other orders, then the [C] chain.  Two
+    runs bitwise equal."""
+    from multi_part_assembly_tpu_torch.ops import masked_bn as MB
+    shape, masked = BN_CASES[case]
+    x, mask, weight, bias, dy = _bn_inputs(cuda, shape, masked)
+    w, fan = MB.row_weights(mask, x.shape)
+    runs = [MB.moments_cuda(x, w, fan) for _ in range(2)]
+    mean, var, denom = runs[0]
+    pm, pv, pd = MB.moments_plain(x, mask)
+    for a, b in zip(runs[0], runs[1]):
+        assert torch.equal(a, b)
+    assert float(denom) == float(pd)
+    std = pv.sqrt()
+    assert float(((mean - pm).abs() / (pm.abs() + std)).max()) <= 1e-6
+    assert float(((var - pv).abs() / pv).max()) <= 1e-6
+    _, factor, offset = MB.affine(weight, bias, pm, pv, 1e-5)
+    for relu in (False, True):
+        y = MB.apply_cuda(x, factor.to(x.dtype), offset.to(x.dtype), relu)
+        want = MB.normalize_plain(x, factor, offset, relu)
+        assert torch.equal(y.view(torch.int16), want.view(torch.int16))
+        got = [_bn_kernel_grads(x, mask, weight, bias, dy, (pm, pv, pd),
+                                relu) for _ in range(2)]
+        for a, b in zip(*got):
+            assert torch.equal(a, b)
+        ref = _bn_f32_grads(x, mask, weight, bias, dy, relu)
+        assert _rel(got[0][0], ref[0]) <= 2.0**-8
+        assert _rel(got[0][1], ref[1]) <= 1e-4
+        assert _rel(got[0][2], ref[2]) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_masked_bn_no_valid_cloud(cuda):
+    """A batch with no valid cloud: denom clamps to 1, the moments are 0,
+    as the plain formulas give; dx is factor dy' alone."""
+    from multi_part_assembly_tpu_torch.ops import masked_bn as MB
+    x, mask, weight, bias, dy = _bn_inputs(cuda, (4, 20, 1000, 64), True,
+                                           counts=[0, 0, 0, 0])
+    w = mask.reshape(-1).float().contiguous()
+    mean, var, denom = MB.moments_cuda(x, w, 1000)
+    pm, pv, pd = MB.moments_plain(x, mask)
+    assert float(denom) == float(pd) == 1.0
+    assert torch.equal(mean, pm) and torch.equal(var, pv)
+    assert not mean.any() and not var.any()
+    got = _bn_kernel_grads(x, mask, weight, bias, dy, (mean, var, denom),
+                           True)
+    ref = _bn_f32_grads(x, mask, weight, bias, dy, True)
+    assert _rel(got[0], ref[0]) <= 2.0**-8
+    assert _rel(got[1], ref[1]) <= 1e-4 and _rel(got[2], ref[2]) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_masked_bn_eval_mode(cuda):
+    """Eval mode on the card takes the plain arithmetic with the running
+    statistics (`bn.plain`, no kernel launched): output bitwise the plain
+    formulas', gradients autograd's of them."""
+    from multi_part_assembly_tpu_torch.models.modules.norm import \
+        MaskedBatchNorm
+    from multi_part_assembly_tpu_torch.ops import masked_bn as MB
+    from multi_part_assembly_tpu_torch.utils import tracing
+    x, mask, weight, bias, dy = _bn_inputs(cuda, (4, 20, 1000, 64), True)
+    bn = MaskedBatchNorm(64).to(cuda).eval()
+    with torch.no_grad():
+        bn.weight.copy_(weight)
+        bn.bias.copy_(bias)
+        bn.running_mean.uniform_(-0.5, 0.5)
+        bn.running_var.uniform_(0.5, 2.0)
+    tracing.reset()
+    MB.reset_launches()
+    xk = x.clone().requires_grad_(True)
+    y = bn(xk, mask, relu=True)
+    y.backward(dy)
+    assert bn.route(x) == 'plain'
+    assert tracing.counters().get('bn.plain') == 1
+    assert not any(MB.LAUNCHES.values())
+    xp = x.clone().requires_grad_(True)
+    wp, bp = (t.clone().requires_grad_(True) for t in (weight, bias))
+    _, factor, offset = MB.affine(wp, bp, bn.running_mean, bn.running_var,
+                                  bn.eps)
+    want = MB.normalize_plain(xp, factor, offset, True)
+    want.backward(dy)
+    assert torch.equal(y.view(torch.int16), want.view(torch.int16))
+    for a, b in ((xk.grad, xp.grad), (bn.weight.grad, wp.grad),
+                 (bn.bias.grad, bp.grad)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_masked_bn_graph_replay_equals_eager(cuda):
+    """A MaskedBatchNorm layer's forward (with the ReLU) and backward,
+    captured in a CUDA graph and replayed, equal the same layer run
+    eagerly from the same state: output, gradients and running statistics
+    bitwise."""
+    from multi_part_assembly_tpu_torch.models.modules.norm import \
+        MaskedBatchNorm
+    x, mask, _, _, dy = _bn_inputs(cuda, (32, 20, 1000, 64), True)
+    bns = [MaskedBatchNorm(64).to(cuda).train() for _ in range(2)]
+    xs = x.clone().requires_grad_(True)
+
+    def step(bn):
+        y = bn(xs, mask, relu=True)
+        return (y, ) + torch.autograd.grad(y, (xs, bn.weight, bn.bias), dy)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            step(bns[0])
+    torch.cuda.current_stream().wait_stream(side)
+    bns[0].running_mean.zero_()
+    bns[0].running_var.fill_(1.0)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = step(bns[0])
+    graph.replay()
+    eager = step(bns[1])
+    torch.cuda.synchronize()
+    for a, b in zip(captured, eager):
+        assert torch.equal(a, b)
+    for name in ('running_mean', 'running_var'):
+        assert torch.equal(getattr(bns[0], name), getattr(bns[1], name))
+
+
+@pytest.mark.cuda
+def test_masked_bn_routes_on_card(cuda):
+    """On the card the PointNet's five batch norms take the kernels in
+    train mode (`bn.fused`), launching the moments, the apply and the
+    backward once a layer, and the plain arithmetic in eval mode
+    (`bn.plain`, nothing launched); a lean layer stays plain; a strided x
+    takes the kernels through a contiguous copy, the same output as the
+    contiguous x; a channel count that is not a multiple of 8 raises."""
+    from multi_part_assembly_tpu_torch.models.modules.encoders import \
+        PointNet
+    from multi_part_assembly_tpu_torch.models.modules.norm import \
+        MaskedBatchNorm
+    from multi_part_assembly_tpu_torch.ops import masked_bn as MB
+    from multi_part_assembly_tpu_torch.utils import tracing
+    net = PointNet(256, compute_dtype=torch.bfloat16).to(cuda)
+    x = torch.randn(4, 20, 100, 3, device=cuda)
+    mask = (torch.arange(20, device=cuda)[None] <
+            torch.tensor([3, 20, 1, 7], device=cuda)[:, None]).float()
+    tracing.reset()
+    MB.reset_launches()
+    net.train()(x, mask).sum().backward()
+    assert tracing.counters().get('bn.fused') == 5
+    assert MB.LAUNCHES == {'bn_moments': 5, 'bn_apply': 5, 'bn_backward': 5}
+    with torch.no_grad():
+        net.eval()(x, mask)
+    assert tracing.counters().get('bn.fused') == 5
+    assert tracing.counters().get('bn.plain') == 5
+    assert MB.LAUNCHES == {'bn_moments': 5, 'bn_apply': 5, 'bn_backward': 5}
+    lean = MaskedBatchNorm(64, lean=True).to(cuda).train()
+    lean(torch.randn(2, 5, 64, device=cuda))
+    assert tracing.counters()['bn.plain'] == 6
+    assert MB.LAUNCHES['bn_moments'] == 5
+    rows = torch.randn(2, 5, 16, 64, device=cuda).to(torch.bfloat16)
+    outs = [MaskedBatchNorm(16).to(cuda).train()(t, relu=True)
+            for t in (rows.transpose(-1, -2), rows.transpose(-1, -2)
+                      .contiguous())]
+    assert torch.equal(outs[0], outs[1])
+    assert MB.LAUNCHES['bn_moments'] == 7
+    odd = MaskedBatchNorm(12).to(cuda).train()
+    with pytest.raises(ValueError, match='multiple of 8'):
+        odd(torch.randn(2, 5, 12, device=cuda))
