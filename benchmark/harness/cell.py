@@ -142,18 +142,21 @@ def run(config, traffic, limits, per_layer, seed, seconds, trace,
     cuda = torch.device(device).type == 'cuda'
     t_start = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix='bench-')  # under the run's TMPDIR
+    phases = {}
     try:
         trainer, logger, cfg_dict, params0, prog = build(
-            config, traffic, seed, device, tmp)
+            config, traffic, seed, device, tmp, phases)
         setup_s = time.perf_counter() - t_start
 
         # -- the measured window ------------------------------------------
         step0, epoch = trainer.step, 1
         t0 = time.perf_counter()
+        ends = []
         while True:
             trainer.train_epoch(epoch)
             epoch += 1
-            if time.perf_counter() - t0 >= seconds:
+            ends.append(time.perf_counter() - t0)
+            if ends[-1] >= seconds:
                 break
         _sync(trainer.device)
         window_s = time.perf_counter() - t0
@@ -220,22 +223,37 @@ def run(config, traffic, limits, per_layer, seed, seconds, trace,
                             'idle_gaps': tr.idle_gaps()}
     log(f'window: {steps} steps in {window_s:.3f} s over epochs 1-'
         f'{epoch - 1}; set-up {setup_s:.3f} s; peak {peak} bytes')
+    log('set-up s: ' + ', '.join(f'{k} {v:.3f}' for k, v in phases.items())
+        + '; epochs of the window, s: ' + ' '.join(
+            f'{b - a:.3f}' for a, b in zip([0.0] + ends, ends)))
     out['checks'] = checks
     return out
 
 
-def build(config, traffic, seed, device, tmp):
+def build(config, traffic, seed, device, tmp, phases=None):
     """The set-up of a run: the trainer for the cell with its checkpoint
     directory `tmp`, the initial weights from the seed loaded, driven
     through epoch 0.  Returns (trainer, logger, the run's configuration,
-    the initial weights, the program's side of the check)."""
+    the initial weights, the program's side of the check).  `phases`, a
+    dict, receives the seconds of each part of it."""
     from multi_part_assembly_tpu_torch.train.trainer import Trainer
     from multi_part_assembly_tpu_torch.utils.config_utils import CfgNode
 
+    phases = {} if phases is None else phases
+    t = time.perf_counter()
+
+    def done(name):
+        nonlocal t
+        now = time.perf_counter()
+        phases[name] = now - t
+        t = now
+
     data_dir = spec.ensure_data(traffic)
     cfg_dict = spec.run_config(config, traffic, data_dir, seed)
+    done('data')
     trainer = Trainer(CfgNode(cfg_dict), device, ckp_dir=tmp, resume=False,
                       quiet=True)
+    done('trainer')
     trainer.logger.close()
     logger = trainer.logger = MemoryLogger()
     slot = trainer.tables['train'] is not None or \
@@ -252,7 +270,9 @@ def build(config, traffic, seed, device, tmp):
     # as the reference starts them: on the CPU the model's own
     # initialisation has drawn from them since the trainer seeded them
     torch.manual_seed(int(seed))
+    done('weights')
     prog = _first_steps(trainer, logger)
+    done('epoch0')
     return trainer, logger, cfg_dict, params0, prog
 
 

@@ -2,9 +2,10 @@
 launches (harness/roofline.py, on each step's own part counts) over the
 device time of the chamfer kernels found by name in the trace
 (`chamfer_pair_kernel`, `chamfer_grad_kernel`, their prep and unpack).
-Layer: kernels."""
+A step runs the chamfer once for each MoN sample and supervised iteration
+of its model family (harness/flops.py `chamfer_calls`).  Layer: kernels."""
 
-from benchmark.harness import roofline
+from benchmark.harness import flops, roofline
 
 KERNELS = r'^chamfer_(pair|grad|prep|unpack)_kernel'
 
@@ -18,7 +19,7 @@ def read(rec):
     if seconds <= 0:
         return None
     d = rec['cfg']['data']
-    calls = int(rec['cfg']['loss'].get('sample_iter', 1))
+    calls = flops.chamfer_calls(rec['cfg'])
     least = sum(roofline.chamfer_step_bound_s(
         c, int(d['max_num_part']), int(d['num_pc_points']), calls)
         for c in t['batch_counts'])

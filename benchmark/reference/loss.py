@@ -140,29 +140,41 @@ def loss_weights(cfg):
 
 
 def mon_loss(model, batch, cfg, generator):
-    """(loss, logs): `sample_iter` samples from one precompute, each
-    matched first when the data is semantic (noise, then the match
-    subsample, drawn sample by sample); the best sample a shape by its
-    weighted loss; the logs are each loss term of the best samples and the
-    loss, batch means."""
+    """(loss, logs): `sample_iter` samples from one precompute; the best
+    sample a shape by its weighted loss; the logs are each loss term of the
+    best samples and the loss, batch means.  A sample's poses are one
+    prediction [B, P, .] or one a supervised iteration [T, B, P, .], whose
+    terms add up over T.  On semantic data each prediction is matched
+    first: the sample's noise, then a match subsample for each of its
+    predictions in turn, drawn from `generator`."""
     lc = cfg['loss']
     semantic = cfg['data']['dataset'] != 'geometry'
     weights = loss_weights(cfg)
     pcs, valids = batch['part_pcs'], batch['part_valids']
     N = pcs.shape[2]
-    feats = model.precompute(batch)
-    totals, terms = [], []
-    for _ in range(int(lc.get('sample_iter', 1))):
-        q, t = model.sample(feats, generator)
+
+    def supervised(q, t):
         gt_q, gt_t = batch['part_quat'], batch['part_trans']
         if semantic:
             idx = torch.randperm(N, generator=generator,
                                  device=pcs.device)[:100]
             gt_q, gt_t = match(pcs, q, t, gt_q, gt_t, batch['match_ids'],
                                idx)
-        ls = losses(pcs, valids, q, t, gt_q, gt_t,
-                    use_rot_loss='rot_loss' in weights,
-                    use_rot_pt_l2='rot_pt_l2_loss' in weights)
+        return losses(pcs, valids, q, t, gt_q, gt_t,
+                      use_rot_loss='rot_loss' in weights,
+                      use_rot_pt_l2='rot_pt_l2_loss' in weights)
+
+    feats = model.precompute(batch)
+    totals, terms = [], []
+    for _ in range(int(lc.get('sample_iter', 1))):
+        q, t = model.sample(feats, generator)
+        if t.dim() == 4:  # [T, B, P, .]: the terms summed over T
+            ls = {}
+            for qi, ti in zip(q, t):
+                for k, v in supervised(qi, ti).items():
+                    ls[k] = ls[k] + v if k in ls else v
+        else:
+            ls = supervised(q, t)
         totals.append(sum(ls[k] * w for k, w in weights.items()))
         terms.append(ls)
     totals = torch.stack(totals)  # [S, B]
@@ -173,4 +185,3 @@ def mon_loss(model, batch, cfg, generator):
     loss = totals[best, rows].mean()
     logs['loss'] = loss
     return loss, logs
-

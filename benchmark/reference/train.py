@@ -1,7 +1,7 @@
 """The first training steps of a run, by the plain reference: the batches
-worked out again from the data files (reference/data.py), the f32 model
-(reference/model.py), the MoN loss (reference/loss.py), autograd, and
-Adam written out.
+worked out again from the data files (reference/data.py), the model of
+the configuration's family (reference/families/<model.name>.py, found by
+name), the MoN loss (reference/loss.py), autograd, and Adam written out.
 
 `run_steps` starts from the initial weights the benchmark made and follows
 its own trajectory; it never reads the program's state.  It computes in
@@ -18,8 +18,9 @@ import math
 import torch
 
 from . import data as D
+from .families import family
 from .loss import mon_loss
-from .model import PNTransformer, Precision
+from .model import Precision
 
 BETAS = (0.9, 0.999)
 EPS = 1e-8
@@ -101,11 +102,8 @@ def run_steps(cfg, wire, params0, seed, steps, device, precision=None,
     if cfg['optimizer'].get('weight_decay', 0.0):
         raise ValueError('the reference writes out Adam without weight '
                          'decay only')
-    if cfg['model']['name'] != 'pn_transformer' or \
-            cfg['model']['encoder'] != 'pointnet' or \
-            cfg['model']['rot_type'] != 'quat':
-        raise ValueError('the reference is the PN-Transformer with PointNet '
-                         'and the quaternion head')
+    fam = family(cfg)
+    fam.supported(cfg)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.manual_seed(int(seed))  # the dropout masks' default generator
@@ -119,7 +117,7 @@ def run_steps(cfg, wire, params0, seed, steps, device, precision=None,
     v2 = {n: torch.zeros_like(v) for n, v in leaves.items()}
     if precision is None:  # the configuration's own
         precision = 'bf16' if cfg['exp'].get('bf16', True) else 'f32'
-    model = PNTransformer(leaves, cfg, Precision(precision))
+    model = fam.build(leaves, cfg, Precision(precision))
     losses, grad1 = [], None
     for k in range(steps):
         batch = _plant(batches(k), fault)

@@ -38,7 +38,13 @@ def test_small_cell_on_the_card(cell, tmp_path, monkeypatch):
     config, traffic = tiny.CELLS[cell]
     cfg = tiny.config(config)
     cfg['exp']['bf16'] = False
-    out = harness_cell.run(cfg, tiny.traffic(traffic), tiny.limits(cell),
+    t = tiny.traffic(traffic)
+    # epoch 0 holds the checked steps: on the card a slot wire dispatches
+    # groups of 8 replays, so the first step and one group
+    steps = harness_cell.check_steps(8 if t['wire'] == 'slot' else 1)
+    t['data']['n_train'] = max(t['data']['n_train'],
+                               steps * cfg['exp']['batch_size'])
+    out = harness_cell.run(cfg, t, tiny.limits(cell),
                            spec.per_layer(cell), 7, 1.0, True, device='cuda',
                            log=lambda m: None)
     assert out['correct'], out['checks']

@@ -19,10 +19,12 @@ def test_top_level_names_are_compared_whole():
 
 def test_reference_imports_nothing_of_the_program():
     ref = os.path.join(spec.BENCH_DIR, 'reference')
-    for name in os.listdir(ref):
-        if not name.endswith('.py'):
-            continue
-        with open(os.path.join(ref, name)) as f:
+    files = [os.path.join(d, n) for d, _, names in os.walk(ref)
+             for n in names if n.endswith('.py')]
+    assert any(os.sep + 'families' + os.sep in f for f in files)
+    for path in files:
+        name = os.path.relpath(path, ref)
+        with open(path) as f:
             tree = ast.parse(f.read())
         for node in ast.walk(tree):
             mods = [a.name for a in node.names] if isinstance(

@@ -42,4 +42,5 @@ CELLS = {
     'flagship-everyday-slot': ('pn_transformer-everyday', 'everyday_slot'),
     'semantic-chair-slot': ('pn_transformer-partnet_chair', 'chair_slot'),
     'flagship-everyday-host': ('pn_transformer-everyday', 'everyday_host'),
+    'semantic-chair-host': ('pn_transformer-partnet_chair', 'chair_host'),
 }
