@@ -25,11 +25,19 @@
   X(matching_begin) X(matching_end)                                       \
   X(lap_cost_begin) X(lap_cost_end)                                       \
   X(optimizer_begin) X(optimizer_end)                                     \
+  X(relation_begin) X(relation_end)                                       \
+  X(edge_mlp_begin) X(edge_mlp_end)                                       \
+  X(gru_begin) X(gru_end)                                                 \
+  X(node_mlp_begin) X(node_mlp_end)                                       \
   X(encoder_bwd_begin) X(encoder_bwd_end)                                 \
   X(masked_bn_bwd_begin) X(masked_bn_bwd_end)                             \
   X(transformer_bwd_begin) X(transformer_bwd_end)                         \
   X(pose_head_bwd_begin) X(pose_head_bwd_end)                             \
-  X(loss_bwd_begin) X(loss_bwd_end)
+  X(loss_bwd_begin) X(loss_bwd_end)                                       \
+  X(relation_bwd_begin) X(relation_bwd_end)                               \
+  X(edge_mlp_bwd_begin) X(edge_mlp_bwd_end)                               \
+  X(gru_bwd_begin) X(gru_bwd_end)                                         \
+  X(node_mlp_bwd_begin) X(node_mlp_bwd_end)
 
 #define MPA_DEFINE_MARK(name) \
   extern "C" __global__ void mpa_mark_##name() {}

@@ -292,7 +292,8 @@ class DataLoader:
     `data.collate` on the collate thread, `data.place` on the transform
     thread, `data.wait` for the consumer's hand-over, and
     `data.epoch_start` from the iterator's start to its first batch.
-    Counters: `data.valid_parts` at collate, `data.batches` and
+    Counters: `data.valid_parts` and `data.valid_pairs` (the sum of each
+    shape's squared part count) at collate, `data.batches` and
     `data.starved` (a hand-over that found no batch ready) at the
     hand-over."""
 
@@ -359,6 +360,7 @@ class DataLoader:
                             [int(i) for i in idx])
                         tensors = _to_tensors(batch, pin)
                     tracing.count('data.valid_parts', _valid_parts(batch))
+                    tracing.count('data.valid_pairs', _valid_pairs(batch))
                     if not put(q, (n, tensors)):
                         return
             except Exception as e:  # re-raised in the consumer
@@ -428,14 +430,28 @@ class DataLoader:
                 t.join()
 
 
-def _valid_parts(batch):
-    """The valid parts of a collated batch: its part counts (geometric
-    wires) or its valid part slots (PartNet)."""
+def _part_counts(batch):
+    """Each shape's valid parts in a collated batch: its part counts
+    (geometric wires) or its valid part slots (PartNet); None without
+    either."""
     if 'part_counts' in batch:
-        return int(np.sum(batch['part_counts']))
+        return np.asarray(batch['part_counts'], np.int64)
     if 'part_valids' in batch:
-        return int(np.count_nonzero(np.asarray(batch['part_valids'])))
-    return 0
+        return np.count_nonzero(np.asarray(batch['part_valids']), axis=-1)
+    return None
+
+
+def _valid_parts(batch):
+    """The valid parts of a collated batch."""
+    counts = _part_counts(batch)
+    return 0 if counts is None else int(np.sum(counts))
+
+
+def _valid_pairs(batch):
+    """The valid part pairs of a collated batch: the sum of each shape's
+    squared part count, the rows of a pair MLP over valid parts."""
+    counts = _part_counts(batch)
+    return 0 if counts is None else int(np.sum(counts ** 2))
 
 
 def unpack_parts(part_pcs_packed, pack_index, part_valids):

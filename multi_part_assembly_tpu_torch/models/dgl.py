@@ -5,12 +5,18 @@ Equivalence classes of parts are dense masked reductions over the [B, P, P]
 equality matrix, as in JAX.  The pair MLPs (the model's FLOP bulk), the
 RelationNet and the pose encoder run their matmuls in `compute_dtype`; batch
 norm statistics stay f32.
+
+Device regions of a round (utils/tracing.py): `relation` (the pose encoder
+and the RelationNet), `edge_mlp` (the pair concat, the edge MLP and the
+relation-weighted mean), `node_mlp`; the counter `gnn.pair_rows` adds the
+B x P x P rows of each pair-MLP call (edge MLP and RelationNet).
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils import tracing
 from .base import extract_part_feats, rot_dim_of, zero_pose
 from .modules.encoders import build_encoder
 from .modules.norm import MaskedBatchNorm
@@ -159,24 +165,35 @@ class DGLModel(nn.Module):
                          dim=-1)
         net = self.relation_merge if self.merge_node and iter_ind % 2 == 1 \
             else self.relation_dense
+        tracing.count('gnn.pair_rows', B * P * P)
         return net(pair)[..., 0]  # [B, P, P]
 
     def _message_passing(self, part_feats, relation_matrix, iter_ind):
         """Edge MLP over the pairs [f_i, f_j], relation-weighted mean over j
-        (JAX dgl.py:153-166)."""
+        (JAX dgl.py:153-166).  The device region `edge_mlp`."""
+        part_feats, relation_matrix = tracing.region_begin(
+            'edge_mlp', part_feats, relation_matrix)
         B, P, C = part_feats.shape
         pair = torch.cat([part_feats[:, :, None, :].expand(B, P, P, C),
                           part_feats[:, None, :, :].expand(B, P, P, C)],
                          dim=-1)
+        tracing.count('gnn.pair_rows', B * P * P)
         edge = self.edge_mlps[iter_ind](pair)  # [B, P, P, F]
         msg = (edge * relation_matrix[..., None]).sum(dim=2)
         norm = relation_matrix.sum(dim=-1, keepdim=True)
-        return msg / (norm + 1e-6)
+        messages, = tracing.region_end('edge_mlp', msg / (norm + 1e-6))
+        return messages
+
+    def _node_mlp(self, x, iter_ind):
+        """The round's node MLP, the device region `node_mlp`."""
+        x, = tracing.region_begin('node_mlp', x)
+        out, = tracing.region_end('node_mlp', self.node_mlps[iter_ind](x))
+        return out
 
     def _node_update(self, part_feats, messages, valids, iter_ind,
                      generator):
-        return self.node_mlps[iter_ind](
-            torch.cat([messages, part_feats], dim=-1))
+        return self._node_mlp(torch.cat([messages, part_feats], dim=-1),
+                              iter_ind)
 
     def sample(self, feats, data_dict, generator=None):
         part_feats = feats['part_feats']
@@ -190,7 +207,8 @@ class DGLModel(nn.Module):
         all_rot, all_trans = [], []
         for it in range(self.gnn_iter):
             if it >= 1:
-                pose_feats = self.pose_extractor(pred_pose)
+                pose_in, = tracing.region_begin('relation', pred_pose)
+                pose_feats = self.pose_extractor(pose_in)
                 if self.merge_node and self.semantic and it % 2 == 1:
                     part_ids = data_dict['part_ids']
                     part_feats_c = merge_equiv_nodes(part_feats, part_ids,
@@ -199,8 +217,9 @@ class DGLModel(nn.Module):
                                                      valids)
                 else:
                     part_feats_c, pose_feats_c = part_feats, pose_feats
-                relation_matrix = self._update_relation(pose_feats_c, it) \
-                    * valid_matrix
+                relation_matrix, = tracing.region_end(
+                    'relation',
+                    self._update_relation(pose_feats_c, it) * valid_matrix)
             else:
                 part_feats_c = part_feats
                 relation_matrix = valid_matrix

@@ -11,11 +11,14 @@ run once over the whole [B, T, C] sequence outside the step loop, and the
 three hidden projections into one [H, 3H] matmul a step.  The gate order is
 r|z|n, as torch's weight_ih / weight_hh rows.  The JAX package has no Pallas
 kernel here: this step loop is what it computes.  All in f32, as the JAX
-cells' Dense layers.
+cells' Dense layers.  Each call adds its recurrent steps (layers x
+directions x T) to the counter `gru.steps` (utils/tracing.py).
 """
 
 import torch
 from torch import nn
+
+from ...utils import tracing
 
 __all__ = ['FusedGRUCell', 'MaskedGRU']
 
@@ -75,6 +78,7 @@ class MaskedGRU(nn.Module):
 
     def forward(self, x, init_hidden=None, valids=None):
         B, T, _ = x.shape
+        tracing.count('gru.steps', self.num_layers * self.num_dirs * T)
         mask = x.new_ones((B, T)) if valids is None else valids.to(x.dtype)
         if init_hidden is None:
             init_hidden = x.new_zeros((self.num_layers, self.num_dirs, B,

@@ -1,8 +1,10 @@
 """RGL-Net: DGL with a bidirectional GRU over the part sequence in every
-node update (port of multi_part_assembly_tpu/models/rgl_net.py:15-57)."""
+node update (port of multi_part_assembly_tpu/models/rgl_net.py:15-57).
+The GRU call is the device region `gru` (utils/tracing.py)."""
 
 import torch
 
+from ..utils import tracing
 from .dgl import DGLModel, NodeMLP
 from .modules.rnn import MaskedGRU
 
@@ -48,5 +50,7 @@ class RGLNet(DGLModel):
         rgl_net.py:49-57)."""
         gru_in = torch.cat([part_feats, messages], dim=-1)  # [B, P, 2F]
         init_hidden = self._init_gru_hidden(part_feats, iter_ind, generator)
+        gru_in, = tracing.region_begin('gru', gru_in)
         gru_out, _ = self.grus[iter_ind](gru_in, init_hidden, valids=valids)
-        return self.node_mlps[iter_ind](gru_out)  # from [B, P, 4F]
+        gru_out, = tracing.region_end('gru', gru_out)
+        return self._node_mlp(gru_out, iter_ind)  # from [B, P, 4F]

@@ -67,15 +67,26 @@ def load_spans(path):
     return spans
 
 
-def load_counters(path):
-    """The program's counters over the traced epoch (spans.json), {} when
-    there are none."""
+def _record(path):
+    """spans.json beside the trace, {} when there is none."""
     folder = path if os.path.isdir(path) else os.path.dirname(path)
     spans_path = os.path.join(folder, 'spans.json')
     if not os.path.exists(spans_path):
         return {}
     with open(spans_path) as f:
-        return json.load(f).get('counters', {})
+        return json.load(f)
+
+
+def load_counters(path):
+    """The program's counters over the traced epoch (spans.json), {} when
+    there are none."""
+    return _record(path).get('counters', {})
+
+
+def load_max_num_part(path):
+    """The part slots of a shape in the traced run (spans.json), None when
+    not recorded."""
+    return _record(path).get('max_num_part')
 
 
 def merge(intervals):
@@ -186,13 +197,15 @@ def idle_gaps(events, spans, top=10, thread='MainThread'):
 
 
 def summarize(events, top=30, host=False, program_spans=(), steps=1,
-              counters=None):
+              counters=None, max_num_part=None):
     """{'kernels': [(name, total_us, count)], 'busy_us', 'span_us',
     'idle_share' (None when no device event), 'host': [...], 'regions'
     ({region: (ms a step of `steps`, intervals)}), 'region_cover',
     'spans' (`span_table`), 'gaps' (`idle_gaps`), 'counters' (the
     program's), 'valid_share' (`data.valid_parts` over `step.slots`, None
-    without them)}."""
+    without them), 'valid_pair_share' (`data.valid_pairs` over
+    `step.slots` x `max_num_part`, the share of a pair MLP's rows that
+    pair two valid parts; None without them)}."""
     dev = [e for e in events if e.get('cat', '').lower() in DEVICE_CATS]
     dur, cnt = collections.Counter(), collections.Counter()
     for e in dev:
@@ -222,6 +235,9 @@ def summarize(events, top=30, host=False, program_spans=(), steps=1,
     slots = out['counters'].get('step.slots', 0)
     out['valid_share'] = out['counters'].get('data.valid_parts', 0) / \
         slots if slots else None
+    pairs = out['counters'].get('data.valid_pairs')
+    out['valid_pair_share'] = pairs / (slots * max_num_part) \
+        if slots and max_num_part and pairs is not None else None
     return out
 
 
@@ -253,6 +269,9 @@ def report(s):
     if s['valid_share'] is not None:
         print(f'valid share of the part slots (data.valid_parts / '
               f'step.slots): {s["valid_share"]:.4f}')
+    if s.get('valid_pair_share') is not None:
+        print(f'valid share of the part pairs (data.valid_pairs / '
+              f'(step.slots x max_num_part)): {s["valid_pair_share"]:.4f}')
     if s['gaps']:
         print(f'{"gap_ms":>10} {"spans%":>6}  longest device idle gaps: the '
               f'training thread\'s span; the other threads\'')
@@ -272,7 +291,8 @@ def main(argv=None):
     steps = sum(sp['ids'].get('steps', 0) for sp in spans
                 if sp['name'] == 'train.dispatch') or 1
     s = summarize(load_events(args.trace), args.top, args.host, spans,
-                  steps, load_counters(args.trace))
+                  steps, load_counters(args.trace),
+                  load_max_num_part(args.trace))
     report(s)
     if args.host:
         print(f'{"host_ms":>10} {"calls":>6}  operator')

@@ -121,7 +121,8 @@ def profile_epoch(trainer, out_dir):
         json.dump({'spans': [s.as_dict() for s in tracing.spans()
                              if s.start_ns >= t0],
                    'counters': {k: v - counts.get(k, 0)
-                                for k, v in after.items()}}, f)
+                                for k, v in after.items()},
+                   'max_num_part': int(trainer.cfg.data.max_num_part)}, f)
     print(f'profile trace written to {out_dir}', flush=True)
 
 

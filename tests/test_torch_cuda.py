@@ -802,6 +802,76 @@ def test_replay_emits_the_captured_marks_in_order(cuda, tmp_path,
     graph.close()
 
 
+@pytest.mark.cuda
+def test_rgl_net_regions_in_a_replayed_step(cuda, tmp_path, monkeypatch):
+    """RGL-Net's graphed step at a small width (slot wire, 2 replays a
+    group): one replay launches the marks its captured body launched, in
+    order and nested, among them each round's `edge_mlp`, `gru`,
+    `node_mlp`, the `relation` of the later rounds, and their backward."""
+    from multi_part_assembly_tpu_torch.train.trainer import Trainer
+    from multi_part_assembly_tpu_torch.utils import config_utils as TCFG
+    from multi_part_assembly_tpu_torch.utils import tracing
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.join(root, 'scripts'))
+    from make_synthetic_data import generate
+    os.environ['MPA_MESH_CACHE_DIR'] = str(tmp_path / 'mesh_cache')
+    synth = generate(str(tmp_path / 'data'), n_shapes=8, min_parts=2,
+                     max_parts=6, seed=0)
+    cfg = TCFG.load_cfg_file(os.path.join(
+        root, 'configs/rgl_net/rgl_net-32x1-cosine_200e-everyday.py'))
+    cfg = cfg.merge_from_list([
+        'data.data_dir', synth, 'exp.num_epochs', '2', 'exp.val_every', '1',
+        'exp.val_sample_vis', '0', 'exp.batch_size', '2',
+        'exp.steps_per_call', '2', 'model.pc_feat_dim', '16',
+        'data.max_num_part', '6', 'data.num_pc_points', '64',
+        'data.device_sampling', 'True'])
+    cfg.freeze()
+    trainer = Trainer(cfg, 'cuda', ckp_dir=str(tmp_path / 'rgl'),
+                      resume=False, quiet=True)
+    launched = []
+    launch = tracing._launch
+
+    def spy(edge, device):
+        launched.append(edge)
+        launch(edge, device)
+    monkeypatch.setattr(tracing, '_launch', spy)
+    loader = trainer.train_loader
+    loader.set_epoch(0)
+    it = iter(loader)
+    trainer._dispatch([next(it)], [0.0])  # two warm-ups and the capture
+    n = len(launched) // 3
+    body = launched[2 * n:]
+    assert launched == body * 3 and n > 0
+    batch = next(it)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        trainer._dispatch([batch], [0.0])
+        torch.cuda.synchronize()
+    it.close()
+    events = sorted((ev.start_ns(), ev.name())
+                    for ev in prof.profiler.kineto_results.events()
+                    if 'mpa_mark_' in ev.name())
+    replayed = [name.split('mpa_mark_')[1].split('(')[0]
+                for _, name in events]
+    assert trainer.compiled.captures == 1
+    assert replayed == body
+    stack, opened = [], []
+    for edge in body:
+        region, what = edge.rsplit('_', 1)
+        if what == 'begin':
+            stack.append(region)
+            opened.append(region)
+        else:
+            assert stack.pop() == region
+    assert not stack
+    T = int(cfg.model.gnn_iter)
+    for region, times in (('edge_mlp', T), ('gru', T), ('node_mlp', T),
+                          ('relation', T - 1), ('pose_head', T)):
+        assert opened.count(region) == times, region
+        assert opened.count(f'{region}_bwd') == times, region
+    trainer.close()
+
+
 # ---------------------------------------------------------------------------
 # masked batch norm (ops/masked_bn.py, csrc/masked_bn.cu)
 # ---------------------------------------------------------------------------

@@ -164,8 +164,12 @@ def test_profile_writes_the_programs_spans(run, capsys):
     assert s['counters'] == record['counters']
     assert s['valid_share'] == pytest.approx(
         record['counters']['data.valid_parts'] / (2 * 2 * 5))
+    assert record['max_num_part'] == 5
+    assert s['valid_pair_share'] == pytest.approx(
+        record['counters']['data.valid_pairs'] / (2 * 2 * 5 * 5))
     out = capsys.readouterr().out
     assert 'program span' in out and 'data.starved' in out
+    assert 'valid share of the part pairs' in out
 
 
 def test_profile_summary_regions_and_gaps():

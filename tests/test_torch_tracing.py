@@ -5,6 +5,8 @@ parents and (epoch, batch) ids, each span's `record_function` twin within
 launch nothing on a CPU tensor (a step's numbers are bitwise those of
 unmarked code, and its autograd graph holds no mark node), nest in the
 step's order when their launches are recorded in place of the card's.
+RGL-Net's graph layers (`relation`, `edge_mlp`, `gru`, `node_mlp`) and the
+counters `gnn.pair_rows`, `gru.steps`, `data.valid_pairs` on a small batch.
 The marks on the card: tests/test_torch_cuda.py."""
 
 import os
@@ -28,6 +30,11 @@ CONFIGS = os.path.join(ROOT, 'configs/pn_transformer/pn_transformer')
 FLAGSHIP = os.path.join(CONFIGS, 'pn_transformer-32x1-cosine_400e-everyday.py')
 CHAIR = os.path.join(CONFIGS,
                      'pn_transformer-32x1-cosine_400e-partnet_chair.py')
+RGL = os.path.join(ROOT, 'configs/rgl_net/rgl_net-32x1-cosine_200e-everyday.py')
+RGL_TINY = ['model.pc_feat_dim', '16', 'data.max_num_part', '6',
+            'data.num_pc_points', '32', 'exp.batch_size', '2',
+            'exp.bf16', 'False', 'exp.num_epochs', '3', 'exp.val_every', '1',
+            'exp.val_sample_vis', '0']
 TINY = ['model.pc_feat_dim', '16', 'model.transformer_feat_dim', '32',
         'model.transformer_heads', '4', 'model.transformer_layers', '2',
         'data.max_num_part', '6', 'data.num_pc_points', '32',
@@ -52,6 +59,15 @@ def data(tmp_path_factory):
 
 
 def _trainer(data, tmp_path, kind='geometry', *opts):
+    """A Trainer on the CPU at a small width: the flagship ('geometry'),
+    the semantic PN-Transformer ('semantic') or RGL-Net's everyday config
+    ('rgl_net', geometric data)."""
+    if kind == 'rgl_net':
+        cfg = TCFG.load_cfg_file(RGL).merge_from_list(
+            ['data.data_dir', data['geometry'], *RGL_TINY, *opts])
+        cfg.freeze()
+        return Trainer(cfg, 'cpu', ckp_dir=str(tmp_path / kind),
+                       resume=False, quiet=True)
     cfg = TCFG.load_cfg_file(FLAGSHIP if kind == 'geometry' else CHAIR)
     cfg = cfg.merge_from_list(['data.data_dir', data[kind], *TINY, *opts])
     cfg.freeze()
@@ -317,7 +333,7 @@ def _state(trainer):
             list(trainer.model.parameters()) + list(trainer.model.buffers())]
 
 
-@pytest.mark.parametrize('kind', ['geometry', 'semantic'])
+@pytest.mark.parametrize('kind', ['geometry', 'semantic', 'rgl_net'])
 def test_cpu_step_bitwise_unmarked_and_without_mark_nodes(
         data, tmp_path, kind, monkeypatch):
     outs = []
@@ -415,6 +431,80 @@ def test_semantic_region_marks_a_sample_each(data, tmp_path, monkeypatch):
         ('transformer_bwd', 0): 1, ('encoder_bwd', 0): 1,
         ('masked_bn_bwd', 1): 5, ('optimizer', 0): 1}
     assert order[-1] == ('optimizer', 0)
+    trainer.close()
+
+
+def _rgl_regions(T):
+    """RGL-Net's step as its marks nest: the encoder, then T rounds (the
+    relation from the second on, the edge MLP and the node MLP with three
+    batch norms each, the GRU, the pose head), the loss; the backward in
+    the mirror order, the encoder's closed after the backward pass."""
+    bn, bn_bwd = [('masked_bn', 1)] * 3, [('masked_bn_bwd', 1)] * 3
+    fwd, bwd = [], []
+    for it in range(T):
+        fwd += ([('relation', 0)] if it else []) + [('edge_mlp', 0), *bn,
+                                                    ('gru', 0),
+                                                    ('node_mlp', 0), *bn,
+                                                    ('pose_head', 0)]
+        bwd = [('pose_head_bwd', 0), ('node_mlp_bwd', 0), *bn_bwd,
+               ('gru_bwd', 0), ('edge_mlp_bwd', 0), *bn_bwd] + \
+            ([('relation_bwd', 0)] if it else []) + bwd
+    return ([('augment', 0), ('encoder', 0), *[('masked_bn', 1)] * 5]
+            + fwd + [('loss', 0), ('loss_bwd', 0)] + bwd
+            + [('encoder_bwd', 0), *[('masked_bn_bwd', 1)] * 5,
+               ('optimizer', 0)])
+
+
+def test_rgl_net_region_marks_nest_in_step_order(data, tmp_path,
+                                                 monkeypatch):
+    """RGL-Net's step: each round's graph layers in their regions, the
+    batch norms of the edge and node MLPs nested inside them, the
+    backward's regions in the reverse order of the forward's."""
+    trainer = _trainer(data, tmp_path, 'rgl_net')
+    T = int(trainer.cfg.model.gnn_iter)
+    assert T == 3
+    batch = next(iter(trainer.train_loader))
+    launched = _launches(monkeypatch)
+    _step(trainer, batch)
+    assert _nesting(launched) == _rgl_regions(T)
+    trainer.close()
+
+
+def _counts(batch):
+    """Each shape's valid parts of a loader's batch."""
+    if 'part_counts' in batch:
+        return [int(c) for c in batch['part_counts']]
+    return [int(c) for c in (batch['part_valids'] > 0).sum(-1)]
+
+
+def test_rgl_net_counters_count_a_small_batch(data, tmp_path):
+    """`gnn.pair_rows` adds B x P x P rows for each pair MLP (the edge MLP
+    each round, the RelationNet from the second), `gru.steps` layers x
+    directions x P for each GRU call (one a round), and `data.valid_pairs`
+    the sum of each shape's squared part count over the epoch's batches,
+    beside `data.valid_parts`."""
+    trainer = _trainer(data, tmp_path, 'rgl_net')
+    T = int(trainer.cfg.model.gnn_iter)
+    B, P = 2, 6
+    tracing.reset()
+    batches = list(trainer.train_loader)
+    c = tracing.counters()
+    counts = [_counts(b) for b in batches]
+    assert len(batches) == 5
+    assert c['data.valid_pairs'] == sum(n * n for s in counts for n in s)
+    assert c['data.valid_parts'] == sum(map(sum, counts))
+    assert c['data.valid_pairs'] > c['data.valid_parts']
+    tracing.reset()
+    _step(trainer, batches[0])
+    c = tracing.counters()
+    assert c['gnn.pair_rows'] == (2 * T - 1) * B * P * P
+    assert c['gru.steps'] == T * 1 * 2 * P
+    tracing.reset()
+    trainer.model.eval()
+    with torch.no_grad():
+        trainer.model(trainer._augment(batches[1]), trainer.generator)
+    assert tracing.counters() == {'gnn.pair_rows': (2 * T - 1) * B * P * P,
+                                  'gru.steps': T * 2 * P}
     trainer.close()
 
 
