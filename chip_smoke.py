@@ -52,7 +52,12 @@ Phases, each printing its own line(s); any failure exits non-zero:
      moments within 1e-6, the apply bit for bit, dx within 2^-8, d(weight)
      and d(bias) within 1e-4; each direction's time on device work alone
      beside its bytes bound, the plain version's and the library's batch
-     norm's over the compacted valid rows (library_ms);
+     norm's over the compacted valid rows (library_ms).  Then the
+     PointNet's max-pool kernels (phase_max_pool, csrc/max_pool.cu) at the
+     PN-Transformer's and RGL-Net's widths: the max, its tie count and dx
+     bit for bit the plain version's on the card; each direction's time
+     beside its bytes bound, the plain version's and the library's
+     `torch.amax` then cast (library_ms);
   4. slice: one PN-Transformer MoN loss and its gradients on the card
      against the same step on the CPU (plain chamfer), same weights, with
      the quaternion and with the 6D pose head, and the eval logs of the
@@ -83,7 +88,9 @@ Phases, each printing its own line(s); any failure exits non-zero:
      the launch counters and requires its route's kernels to have launched
      in training and in validation, and the other route's never, and the
      masked batch norm's kernels 5 times (moments, apply, backward) a
-     traced train step body and never in validation (eval mode); each
+     traced train step body and never in validation (eval mode), and the
+     max-pool's once forward and once backward a traced train step body
+     and forward alone in validation; each
      gates the full val metric set and its one checkpoint, and prints the
      checkpoint's save time on the training thread, its writer's time and
      the val export's.  Every host batch is placed on the loaders'
@@ -225,6 +232,8 @@ from multi_part_assembly_tpu_torch.ops import \
 from multi_part_assembly_tpu_torch.ops import \
     masked_bn as MBN  # noqa: E402
 from multi_part_assembly_tpu_torch.ops import \
+    max_pool as MP  # noqa: E402
+from multi_part_assembly_tpu_torch.ops import \
     sampling as SMP  # noqa: E402
 from multi_part_assembly_tpu_torch.train.step import (  # noqa: E402
     WARMUP_STEPS, uncapturable)
@@ -240,6 +249,7 @@ CHAMFER_CU = 'multi_part_assembly_tpu_torch/csrc/chamfer.cu'
 SAMPLER_CU = 'multi_part_assembly_tpu_torch/csrc/device_sampler.cu'
 MATCHING_CU = 'multi_part_assembly_tpu_torch/csrc/matching.cu'
 MASKED_BN_CU = 'multi_part_assembly_tpu_torch/csrc/masked_bn.cu'
+MAX_POOL_CU = 'multi_part_assembly_tpu_torch/csrc/max_pool.cu'
 TPU = 'multi_part_assembly_tpu/ops/chamfer.py'
 TPU_DS = 'multi_part_assembly_tpu/datasets/device_sampler.py'
 # (name, launch counter, TPU computation it replaces, source): B1-B8 replace
@@ -258,10 +268,17 @@ KERNELS = [
      'models/modules/norm.py)', MASKED_BN_CU),
     ('masked_bn[bwd]', 'bn_backward', 'none (XLA fuses the JAX package\'s '
      'models/modules/norm.py)', MASKED_BN_CU),
+    ('max_pool[fwd]', 'pool_fwd', 'none (XLA fuses the JAX package\'s '
+     'PointNet pool, models/modules/encoders.py)', MAX_POOL_CU),
+    ('max_pool[bwd]', 'pool_bwd', 'none (XLA fuses the JAX package\'s '
+     'PointNet pool, models/modules/encoders.py)', MAX_POOL_CU),
 ]
 # the flagship PointNet's batch-norm widths (3-64-64-64-128-256), each
 # followed by a ReLU but the last
 BN_WIDTHS = (64, 64, 64, 128, 256)
+# the PointNet's pooled widths: the PN-Transformer's 256 (the kernels
+# rows'), RGL-Net's 128
+POOL_WIDTHS = (256, 128)
 FUSED_KEYS = ('nn_parts', 'nn_diag', 'bwd_parts', 'bwd_diag')
 # face counts of the ragged soup set: sub-chunk, exactly one chunk, many
 RAGGED_FACES = [37, 512, 3000, 20000]
@@ -1000,6 +1017,97 @@ def phase_masked_bn():
     return out
 
 
+
+def _pool_inputs(C, seed):
+    """The PointNet's last output as the pool sees it, [B, P, N, C] bf16 on
+    the everyday mix: valid clouds random, padded clouds one point repeated
+    (padded parts are zeros, so their points are alike), one NaN column in
+    a valid cloud; the cotangent f32 [B, P, C], negative on half the
+    channels."""
+    rng = np.random.default_rng(seed)
+    counts = rng.choice(PART_POOL, B)
+    valid = (torch.arange(P, device='cuda')[None] <
+             torch.as_tensor(counts, device='cuda')[:, None])
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    x = torch.randn((B, P, N, C), generator=g, device='cuda')
+    x = torch.where(valid[:, :, None, None], x, x[:, :, :1])
+    x[0, 0, 17:19, 5] = float('nan')
+    cot = torch.randn((B, P, C), generator=g, device='cuda')
+    cot[..., :C // 2] = -cot[..., :C // 2].abs()
+    return x.to(torch.bfloat16), cot
+
+
+def phase_max_pool():
+    """The PointNet's max-pool kernels (csrc/max_pool.cu) at the
+    PN-Transformer's [32, 20, 1000, 256] and RGL-Net's [32, 20, 1000, 128]
+    bf16 outputs (`_pool_inputs`): the max, the tie count and dx bit for
+    bit those of the plain version on the card (`max_pool_plain`,
+    `x.float().amax(-2)`, and autograd's backward of it), signed zeros and
+    the NaN column included.  Each direction timed by CUDA events beside
+    its bytes bound (forward: x read once, the max and count written;
+    backward: x, the max, count and cotangent read, dx written), the plain
+    version's time (forward; autograd's backward of it on its saved
+    tensors) and the library's call, `torch.amax` on the bf16 x then
+    `.float()` (forward; autograd's backward of it), a yardstick the
+    program never calls.  Returns the kernels rows {'pool_fwd': forward,
+    'pool_bwd': backward} at the PN-Transformer's width: (largest absolute
+    error, ms, plain ms, bound ms, bound by, library ms)."""
+    out = {}
+    for C in POOL_WIDTHS:
+        x, g = _pool_inputs(C, seed=C)
+        pooled, count = MP.max_pool_cuda(x)
+        dx = MP.max_pool_grad_cuda(x, pooled, count, g)
+        xp = x.clone().requires_grad_(True)
+        p_out = MP.max_pool_plain(xp)
+        p_dx, = torch.autograd.grad(p_out, xp, g, retain_graph=True)
+        p_count = (x.float() == p_out.detach().unsqueeze(-2)).sum(-2)
+        same = {'max': torch.equal(pooled.view(torch.int32),
+                                   p_out.detach().view(torch.int32)),
+                'count': torch.equal(count.long(), p_count),
+                'dx': torch.equal(dx.view(torch.int16),
+                                  p_dx.view(torch.int16))}
+        signed = int((torch.signbit(dx) & (dx == 0)).sum())
+        nans = int(torch.isnan(pooled).sum())
+        if not all(same.values()) or not signed or not nans:
+            raise AssertionError(f'max_pool C={C}: bitwise {same}, -0.0 in '
+                                 f'dx {signed}, NaN maxima {nans}')
+        xl = x.clone().requires_grad_(True)
+        l_out = torch.amax(xl, -2).float()
+        R = B * P
+        fwd_bytes = x.numel() * 2 + R * C * 8
+        bwd_bytes = 2 * x.numel() * 2 + R * C * 12
+        with torch.no_grad():
+            k_f = _cuda_ms(lambda: MP.max_pool_cuda(x), 20)
+            k_b = _cuda_ms(lambda: MP.max_pool_grad_cuda(x, pooled, count,
+                                                         g), 20)
+            p_f = _cuda_ms(lambda: MP.max_pool_plain(x), 10)
+            l_f = _cuda_ms(lambda: torch.amax(x, -2).float(), 10)
+        p_b = _cuda_ms(lambda: torch.autograd.grad(p_out, xp, g,
+                                                   retain_graph=True), 10)
+        l_b = _cuda_ms(lambda: torch.autograd.grad(l_out, xl, g,
+                                                   retain_graph=True), 10)
+        for key, label, k_ms, p_ms, l_ms, nbytes in (
+                ('pool_fwd', 'forward', k_f, p_f, l_f, fwd_bytes),
+                ('pool_bwd', 'backward', k_b, p_b, l_b, bwd_bytes)):
+            bound = _bound(nbytes=nbytes)
+            print(f'kernels: max_pool {label} [{B}, {P}, {N}, {C}] bf16: '
+                  f'kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, the '
+                  f'library\'s amax then cast {l_ms:.4f} ms, bound '
+                  f'{bound[0]:.4f} ms ({nbytes / 1e9:.4f} GB), share '
+                  f'{bound[0] / k_ms:.3f}; bitwise the plain version (max, '
+                  f'count, dx; {signed} signed zeros in dx, {nans} NaN '
+                  f'maxima)', flush=True)
+            if C == POOL_WIDTHS[0]:
+                out[key] = (0.0, k_ms, p_ms, *bound, l_ms)
+        split = ', '.join(f'{name} {t:.4f} ms' for name, t in sorted(
+            _profile(lambda: MP.max_pool_grad_cuda(
+                x, *MP.max_pool_cuda(x), g), 5).items(),
+            key=lambda kv: -kv[1]))
+        print(f'kernels: max_pool C={C} forward and backward, device time '
+              f'by kernel: {split or "not recorded"}', flush=True)
+        del xp, p_out, xl, l_out
+    return out
+
 def _write_soups(folder):
     """Random triangle soups with the RAGGED_FACES face counts."""
     os.makedirs(folder, exist_ok=True)
@@ -1409,7 +1517,8 @@ def _make_everyday_set(root):
 
 
 def _launches():
-    return {**C.LAUNCHES, **DS.LAUNCHES, **LAP.LAUNCHES, **MBN.LAUNCHES}
+    return {**C.LAUNCHES, **DS.LAUNCHES, **LAP.LAUNCHES, **MBN.LAUNCHES,
+            **MP.LAUNCHES}
 
 
 def _reset_launches():
@@ -1417,14 +1526,16 @@ def _reset_launches():
     DS.reset_launches()
     LAP.reset_launches()
     MBN.reset_launches()
+    MP.reset_launches()
 
 
 def _loss_launches(launches):
-    """launches without the masked batch norm's: the loss's, the LAP's
-    and the sampler's kernels, which the phases that count them a step
-    compare exactly (the batch norm's are checked on the flagship's main
-    runs, `_train_run`)."""
-    return {k: v for k, v in launches.items() if k not in MBN.LAUNCHES}
+    """launches without the PointNet's (the masked batch norm's and the
+    max-pool's): the loss's, the LAP's and the sampler's kernels, which the
+    phases that count them a step compare exactly (the PointNet's are
+    checked on the flagship's main runs, `_train_run`)."""
+    return {k: v for k, v in launches.items()
+            if k not in MBN.LAUNCHES and k not in MP.LAUNCHES}
 
 
 DENSE = ['data.device_sampling', 'True', 'data.device_table_layout', 'dense']
@@ -1693,6 +1804,14 @@ def _train_run(index, data_dir, tmp):
         if got != want:
             raise AssertionError(f'{tag}: masked batch norm launches in '
                                  f'{split} {got}, expected {want}')
+    # its max-pool takes the kernels once forward and once backward a
+    # traced train step body, and forward alone in validation
+    got, val = ({k: launches[split][k] for k in MP.LAUNCHES}
+                for split in ('train', 'val'))
+    want = dict.fromkeys(MP.LAUNCHES, trainer.compiled.traced)
+    if got != want or val['pool_fwd'] <= 0 or val['pool_bwd']:
+        raise AssertionError(f'{tag}: max-pool launches in training {got} '
+                             f'(expected {want}), in validation {val}')
     return totals, (ms, wait_ms, losses[0], nbytes)
 
 
@@ -3708,13 +3827,14 @@ def main():
         results.update(_timed(phase_sampler, data_dir, tmp))
         results['lap'] = _timed(phase_lap, partnet_dir)
         results.update(_timed(phase_masked_bn))
+        results.update(_timed(phase_max_pool))
         _timed(phase_slice)
         _timed(phase_family_slices)
         _timed(phase_semantic_slice, partnet_dir)
         repulsion_launches = _timed(phase_repulsion)
         launches = _timed(phase_main, data_dir, tmp)
-        # the masked batch norm's rows count the flagship's main runs alone
-        main_bn = {k: launches[k] for k in MBN.LAUNCHES}
+        # the PointNet kernels' rows count the flagship's main runs alone
+        main_bn = {k: launches[k] for k in (*MBN.LAUNCHES, *MP.LAUNCHES)}
         _timed(phase_placement, data_dir, tmp)
         for phase in (_timed(phase_resume, data_dir, tmp),
                       _timed(phase_families, data_dir, tmp),
@@ -3730,7 +3850,8 @@ def main():
     # no single PyTorch call returns a nearest neighbour with its index, a
     # witness scatter with its gather, an alias-table surface sample or a
     # linear assignment: library_ms is null for those kernels; the masked
-    # batch norm's is F.batch_norm over the compacted valid rows
+    # batch norm's is F.batch_norm over the compacted valid rows, the
+    # max-pool's torch.amax on the bf16 clouds
     summary = {'kernels': [
         {'name': name, 'route': 'cuda', 'source': source, 'replaces': rep,
          'launches': launches[key], 'max_abs_err': results[key][0],

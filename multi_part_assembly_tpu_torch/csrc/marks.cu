@@ -29,6 +29,7 @@
   X(edge_mlp_begin) X(edge_mlp_end)                                       \
   X(gru_begin) X(gru_end)                                                 \
   X(node_mlp_begin) X(node_mlp_end)                                       \
+  X(max_pool_begin) X(max_pool_end)                                       \
   X(encoder_bwd_begin) X(encoder_bwd_end)                                 \
   X(masked_bn_bwd_begin) X(masked_bn_bwd_end)                             \
   X(transformer_bwd_begin) X(transformer_bwd_end)                         \
@@ -37,7 +38,8 @@
   X(relation_bwd_begin) X(relation_bwd_end)                               \
   X(edge_mlp_bwd_begin) X(edge_mlp_bwd_end)                               \
   X(gru_bwd_begin) X(gru_bwd_end)                                         \
-  X(node_mlp_bwd_begin) X(node_mlp_bwd_end)
+  X(node_mlp_bwd_begin) X(node_mlp_bwd_end)                               \
+  X(max_pool_bwd_begin) X(max_pool_bwd_end)
 
 #define MPA_DEFINE_MARK(name) \
   extern "C" __global__ void mpa_mark_##name() {}

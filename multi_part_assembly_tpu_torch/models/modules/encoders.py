@@ -15,9 +15,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ...ops.knn import get_graph_feature, knn, neighborhood_reduce
+from ...ops.max_pool import max_pool
 from ...ops.sampling import (ball_query, furthest_point_sample, gather_points,
                              group_points, three_interpolate, three_nn)
 from ...parallel.dist import all_reduce_sum, world
+from ...utils import tracing
 from .norm import MaskedBatchNorm, frozen_stats
 
 __all__ = ['PointNet', 'DGCNN', 'PointNet2SSG', 'PointNet2MSG',
@@ -33,7 +35,9 @@ class PointNet(nn.Module):
     weights load by name; they run channels-last as one matmul over
     [..., N, C].  The matmuls run in `compute_dtype`; BN statistics and the
     pooled output are f32.  Each ReLU runs inside its batch norm's call
-    (`relu=True`), on the card in the same kernel.
+    (`relu=True`), on the card in the same kernel.  The pool is the device
+    region `max_pool` (`ops/max_pool.py`: the kernels on the card, each
+    call there counted as `pool.kernel`).
     """
 
     def __init__(self, feat_dim, compute_dtype=torch.float32):
@@ -55,7 +59,11 @@ class PointNet(nn.Module):
             w = getattr(self, f'conv{i}').weight[:, :, 0]
             x = F.linear(x, w.to(cdt))
             x = getattr(self, f'bn{i}')(x, point_mask, relu=i < 5)
-        return x.float().amax(dim=-2)
+        x, = tracing.region_begin('max_pool', x)
+        if x.is_cuda:
+            tracing.count('pool.kernel')
+        out, = tracing.region_end('max_pool', max_pool(x))
+        return out
 
 
 def _knn_rows(B, N, budget=512 * 1024 * 1024):

@@ -72,6 +72,10 @@ def _bind(lib):
     lib.mpa_bn_backward.restype = i
     lib.mpa_bn_backward.argtypes = [p] * 5 + [q] + [p] * 4 + [q, i, i, i] + \
         [p] * 5
+    lib.mpa_max_pool_fwd.restype = i
+    lib.mpa_max_pool_fwd.argtypes = [p, q, q, i, i, p, p, p]
+    lib.mpa_max_pool_bwd.restype = i
+    lib.mpa_max_pool_bwd.argtypes = [p] * 4 + [q, q, i, i, p, p]
     lib.mpa_mark.restype = i
     lib.mpa_mark.argtypes = [i, p]
     lib.mpa_mark_count.restype = i

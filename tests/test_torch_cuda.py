@@ -795,10 +795,64 @@ def test_replay_emits_the_captured_marks_in_order(cuda, tmp_path,
         else:
             assert stack.pop() == region
     assert not stack
-    assert regions == {'augment', 'encoder', 'masked_bn', 'transformer',
-                       'pose_head', 'loss', 'loss_bwd', 'pose_head_bwd',
-                       'transformer_bwd', 'encoder_bwd', 'masked_bn_bwd',
-                       'optimizer'}
+    assert regions == {'augment', 'encoder', 'masked_bn', 'max_pool',
+                       'transformer', 'pose_head', 'loss', 'loss_bwd',
+                       'pose_head_bwd', 'transformer_bwd', 'encoder_bwd',
+                       'masked_bn_bwd', 'max_pool_bwd', 'optimizer'}
+    graph.close()
+
+
+@pytest.mark.cuda
+def test_max_pool_region_in_a_replayed_step(cuda, tmp_path, monkeypatch):
+    """The flagship's graphed step at a small width: one replay launches
+    the `max_pool` region inside `encoder` and `max_pool_bwd` inside
+    `encoder_bwd`, once each; the pool's kernels launch once forward and
+    once backward a traced step body (two warm-ups and the capture), and
+    `pool.kernel` counts each body's PointNet call."""
+    from multi_part_assembly_tpu_torch.ops import max_pool as MP
+    from multi_part_assembly_tpu_torch.utils import tracing
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), 'scripts'))
+    from make_synthetic_data import generate
+    os.environ['MPA_MESH_CACHE_DIR'] = str(tmp_path / 'mesh_cache')
+    synth = generate(str(tmp_path / 'data'), n_shapes=8, min_parts=2,
+                     max_parts=6, seed=0)
+    graph, eager = _graph_trainers(synth, tmp_path,
+                                   ['data.device_sampling', 'True'])
+    eager.close()
+    loader = graph.train_loader
+    loader.set_epoch(0)
+    it = iter(loader)
+    tracing.reset()
+    MP.reset_launches()
+    graph._dispatch([next(it)], [0.0])  # two warm-ups and the capture
+    traced = graph.compiled.traced
+    assert traced == 3
+    assert MP.LAUNCHES == {'pool_fwd': traced, 'pool_bwd': traced}
+    assert tracing.counters().get('pool.kernel') == traced
+    batch = next(it)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        graph._dispatch([batch], [0.0])
+        torch.cuda.synchronize()
+    it.close()
+    assert MP.LAUNCHES == {'pool_fwd': traced, 'pool_bwd': traced}
+    events = sorted((ev.start_ns(), ev.name())
+                    for ev in prof.profiler.kineto_results.events()
+                    if 'mpa_mark_' in ev.name())
+    stack, opened = [], []
+    for _, name in events:
+        region, what = name.split('mpa_mark_')[1].split('(')[0] \
+            .rsplit('_', 1)
+        if what == 'begin':
+            opened.append((region, tuple(stack)))
+            stack.append(region)
+        else:
+            assert stack.pop() == region
+    assert not stack
+    pools = [(r, s) for r, s in opened if r.startswith('max_pool')]
+    assert pools == [('max_pool', ('encoder', )),
+                     ('max_pool_bwd', ('encoder_bwd', ))]
     graph.close()
 
 

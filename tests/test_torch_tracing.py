@@ -393,15 +393,15 @@ def _nesting(launched):
 
 def test_region_marks_nest_in_step_order(data, tmp_path, monkeypatch):
     """The flagship's step (augmentation, PointNet with five masked batch
-    norms, transformer, head, loss; backward; clipping and Adam): each
-    region's marks once, the backward's in reverse, the encoder's backward
-    closed after the backward pass."""
+    norms and its max-pool, transformer, head, loss; backward; clipping and
+    Adam): each region's marks once, the backward's in reverse, the
+    encoder's backward closed after the backward pass."""
     trainer = _trainer(data, tmp_path)
     batch = next(iter(trainer.train_loader))
     launched = _launches(monkeypatch)
     _step(trainer, batch)
-    bn = [('masked_bn', 1)] * 5
-    bn_bwd = [('masked_bn_bwd', 1)] * 5
+    bn = [('masked_bn', 1)] * 5 + [('max_pool', 1)]
+    bn_bwd = [('max_pool_bwd', 1)] + [('masked_bn_bwd', 1)] * 5
     assert _nesting(launched) == [
         ('augment', 0), ('encoder', 0), *bn, ('transformer', 0),
         ('pose_head', 0), ('loss', 0), ('loss_bwd', 0),
@@ -424,18 +424,21 @@ def test_semantic_region_marks_a_sample_each(data, tmp_path, monkeypatch):
     for region, depth in order:
         count[(region, depth)] = count.get((region, depth), 0) + 1
     assert count == {
-        ('encoder', 0): 1, ('masked_bn', 1): 5, ('transformer', 0): 1,
+        ('encoder', 0): 1, ('masked_bn', 1): 5, ('max_pool', 1): 1,
+        ('transformer', 0): 1,
         ('pose_head', 0): S, ('loss', 0): S, ('matching', 1): S,
         ('lap_cost', 2): S,
         ('loss_bwd', 0): S, ('pose_head_bwd', 0): S,
         ('transformer_bwd', 0): 1, ('encoder_bwd', 0): 1,
-        ('masked_bn_bwd', 1): 5, ('optimizer', 0): 1}
+        ('max_pool_bwd', 1): 1, ('masked_bn_bwd', 1): 5,
+        ('optimizer', 0): 1}
     assert order[-1] == ('optimizer', 0)
     trainer.close()
 
 
 def _rgl_regions(T):
-    """RGL-Net's step as its marks nest: the encoder, then T rounds (the
+    """RGL-Net's step as its marks nest: the encoder (its five batch norms
+    and its pool), then T rounds (the
     relation from the second on, the edge MLP and the node MLP with three
     batch norms each, the GRU, the pose head), the loss; the backward in
     the mirror order, the encoder's closed after the backward pass."""
@@ -449,10 +452,11 @@ def _rgl_regions(T):
         bwd = [('pose_head_bwd', 0), ('node_mlp_bwd', 0), *bn_bwd,
                ('gru_bwd', 0), ('edge_mlp_bwd', 0), *bn_bwd] + \
             ([('relation_bwd', 0)] if it else []) + bwd
-    return ([('augment', 0), ('encoder', 0), *[('masked_bn', 1)] * 5]
+    return ([('augment', 0), ('encoder', 0), *[('masked_bn', 1)] * 5,
+             ('max_pool', 1)]
             + fwd + [('loss', 0), ('loss_bwd', 0)] + bwd
-            + [('encoder_bwd', 0), *[('masked_bn_bwd', 1)] * 5,
-               ('optimizer', 0)])
+            + [('encoder_bwd', 0), ('max_pool_bwd', 1),
+               *[('masked_bn_bwd', 1)] * 5, ('optimizer', 0)])
 
 
 def test_rgl_net_region_marks_nest_in_step_order(data, tmp_path,
