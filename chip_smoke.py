@@ -219,6 +219,10 @@ sys.path.insert(0, os.path.join(ROOT, 'scripts'))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+# the H100's peaks (unfused f32, HBM3) and B1/B3's bound, counted in
+# benchmark/harness/roofline.py
+from benchmark.harness.roofline import (  # noqa: E402
+    PAIR_OPS, PEAK_BYTES, PEAK_OPS, bound_s, pair_bound_s)
 from multi_part_assembly_tpu_torch.datasets import \
     device_sampler as DS  # noqa: E402
 from multi_part_assembly_tpu_torch.datasets import mesh_io  # noqa: E402
@@ -237,6 +241,7 @@ from multi_part_assembly_tpu_torch.ops import \
     sampling as SMP  # noqa: E402
 from multi_part_assembly_tpu_torch.train.step import (  # noqa: E402
     WARMUP_STEPS, uncapturable)
+from multi_part_assembly_tpu_torch.utils import tracing  # noqa: E402
 
 FLAGSHIP_CFG = os.path.join(
     ROOT, 'configs/pn_transformer/pn_transformer/'
@@ -280,6 +285,12 @@ BN_WIDTHS = (64, 64, 64, 128, 256)
 # rows'), RGL-Net's 128
 POOL_WIDTHS = (256, 128)
 FUSED_KEYS = ('nn_parts', 'nn_diag', 'bwd_parts', 'bwd_diag')
+# the kernels' counters `launch.<key>` (ops/cuda_build.py `launch`)
+SAMPLER_KEYS = ('sample_dense', 'sample_chunked')
+BN_KEYS = ('bn_moments', 'bn_apply', 'bn_backward')
+POOL_KEYS = ('pool_fwd', 'pool_bwd')
+LAUNCH_KEYS = FUSED_KEYS + ('nn_off', 'nn_dir') + SAMPLER_KEYS + \
+    ('lap', ) + BN_KEYS + POOL_KEYS
 # face counts of the ragged soup set: sub-chunk, exactly one chunk, many
 RAGGED_FACES = [37, 512, 3000, 20000]
 # B2/B4 add a row's terms in a fixed order, the plain version's on the CPU,
@@ -290,15 +301,11 @@ RAGGED_FACES = [37, 512, 3000, 20000]
 GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-6
 # B2/B4's two forms: (need_dy, label); the kernels line reports the first
 BWD_FORMS = ((True, 'with dy'), (False, 'dx only'))
-# Peaks of one H100 SXM at 700 W (NVIDIA's data sheet): FP32 operations
-# that cannot fuse into FMAs (half the 67 TFLOP/s figure, which counts an
-# FMA as two), and HBM3 bytes a second.  A nearest-neighbour pair of B1/B3,
-# which serve both directions from one distance, costs PAIR_OPS of them:
-# three subtractions, three products, two additions and one minimum for
-# each direction, the pair counted once.  B7 and B8 serve one direction a
-# launch, and a chamfer launches them twice: each launch computes every
-# pair's distance and one minimum, DIR_OPS operations a pair and a launch.
-PEAK_OPS, PEAK_BYTES, PAIR_OPS, DIR_OPS = 33.5e12, 3.35e12, 10, 9
+# B7 and B8 serve one direction a launch, and a chamfer launches them
+# twice: each launch computes every pair's distance and one minimum,
+# DIR_OPS operations a pair and a launch (B1/B3's PAIR_OPS count both
+# directions from one distance).
+DIR_OPS = 9
 
 
 def phase_device():
@@ -435,18 +442,17 @@ def _call_ms(fn, iters):
 
 
 def _bound(ops=0.0, nbytes=0.0):
-    """(bound_ms, bound_by): the least time the card could take for `ops`
-    operations at PEAK_OPS and `nbytes` bytes at PEAK_BYTES."""
-    t_ops, t_bytes = ops / PEAK_OPS, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), \
-        'operations' if t_ops >= t_bytes else 'bytes'
+    """(bound_ms, bound_by): `bound_s` in milliseconds, the least time the
+    card could take for `ops` operations and `nbytes` bytes."""
+    s, by = bound_s(ops, nbytes)
+    return 1e3 * s, by
 
 
 def _pair_bound(pairs, b):
-    """Bound of a nearest-neighbour function over `pairs` point pairs,
-    both directions, each pair counted once (PAIR_OPS operations); bytes:
-    both clouds read, two distances and two witnesses written a point."""
-    return _bound(PAIR_OPS * pairs, b * P * N * (2 * 12 + 4 * 4) + 4 * b)
+    """`pair_bound_s` in milliseconds: a B1/B3 launch over `pairs` point
+    pairs of a [b, P, N] batch."""
+    s, by = pair_bound_s(pairs, b, P, N)
+    return 1e3 * s, by
 
 
 def _dir_bound(pairs, points):
@@ -1444,7 +1450,7 @@ def phase_repulsion():
         loss.sum().backward()
         return cd, loss.detach(), p.grad
 
-    _reset_launches()
+    tracing.reset()
     kern = {name: run(limit, False) for name, limit in routes.items()}
     torch.cuda.synchronize()
     counters = _launches()
@@ -1517,16 +1523,9 @@ def _make_everyday_set(root):
 
 
 def _launches():
-    return {**C.LAUNCHES, **DS.LAUNCHES, **LAP.LAUNCHES, **MBN.LAUNCHES,
-            **MP.LAUNCHES}
-
-
-def _reset_launches():
-    C.reset_launches()
-    DS.reset_launches()
-    LAP.reset_launches()
-    MBN.reset_launches()
-    MP.reset_launches()
+    """The kernels' launches since the last `tracing.reset()`, by key."""
+    counted = tracing.counters()
+    return {k: counted.get('launch.' + k, 0) for k in LAUNCH_KEYS}
 
 
 def _loss_launches(launches):
@@ -1535,7 +1534,7 @@ def _loss_launches(launches):
     phases that count them a step compare exactly (the PointNet's are
     checked on the flagship's main runs, `_train_run`)."""
     return {k: v for k, v in launches.items()
-            if k not in MBN.LAUNCHES and k not in MP.LAUNCHES}
+            if k not in BN_KEYS + POOL_KEYS}
 
 
 DENSE = ['data.device_sampling', 'True', 'data.device_table_layout', 'dense']
@@ -1694,7 +1693,7 @@ def _train_run(index, data_dir, tmp):
         with _Timed('save_checkpoint', '_export_val_vis') as timed, \
                 _Wire() as wire:
             torch.cuda.reset_peak_memory_stats()
-            _reset_launches()
+            tracing.reset()
             t0 = time.perf_counter()
             trainer = train_torch.main([
                 '--cfg_file', FLAGSHIP_CFG, '--ckp_dir', run_dir,
@@ -1787,7 +1786,7 @@ def _train_run(index, data_dir, tmp):
                 raise AssertionError(
                     f'{tag}: {key} launched {launches[split][key]} times in '
                     f'{split} on the {mode} route')
-    for key in DS.LAUNCHES:
+    for key in SAMPLER_KEYS:
         for split in ('train', 'val'):
             if (launches[split][key] > 0) != (key == sampler_key):
                 raise AssertionError(
@@ -1797,18 +1796,18 @@ def _train_run(index, data_dir, tmp):
     # train step body (moments, apply, backward once a layer) and the plain
     # arithmetic in validation (eval mode)
     bn_train = {k: len(BN_WIDTHS) * trainer.compiled.traced
-                for k in MBN.LAUNCHES}
+                for k in BN_KEYS}
     for split, want in (('train', bn_train),
-                        ('val', dict.fromkeys(MBN.LAUNCHES, 0))):
-        got = {k: launches[split][k] for k in MBN.LAUNCHES}
+                        ('val', dict.fromkeys(BN_KEYS, 0))):
+        got = {k: launches[split][k] for k in BN_KEYS}
         if got != want:
             raise AssertionError(f'{tag}: masked batch norm launches in '
                                  f'{split} {got}, expected {want}')
     # its max-pool takes the kernels once forward and once backward a
     # traced train step body, and forward alone in validation
-    got, val = ({k: launches[split][k] for k in MP.LAUNCHES}
+    got, val = ({k: launches[split][k] for k in POOL_KEYS}
                 for split in ('train', 'val'))
-    want = dict.fromkeys(MP.LAUNCHES, trainer.compiled.traced)
+    want = dict.fromkeys(POOL_KEYS, trainer.compiled.traced)
     if got != want or val['pool_fwd'] <= 0 or val['pool_bwd']:
         raise AssertionError(f'{tag}: max-pool launches in training {got} '
                              f'(expected {want}), in validation {val}')
@@ -1894,7 +1893,7 @@ def phase_resume(data_dir, tmp):
             'exp.val_every', '1', *DENSE]
     cfg = train_torch.build_cfg(train_torch.parse_args(
         ['--cfg_file', FLAGSHIP_CFG, '--ckp_dir', ckp, '--opts', *opts]))
-    _reset_launches()
+    tracing.reset()
     with _Timed('save_checkpoint', '_export_val_vis', '_try_resume') as timed:
         first = Trainer(cfg, 'cuda', ckp_dir=ckp)
         t0 = time.perf_counter()
@@ -2209,7 +2208,7 @@ def _epoch_run(tag, path, T, opts, data_dir, run_dir, batch=B, ranges=(),
     try:
         with _Timed('save_checkpoint', '_export_val_vis') as timed:
             torch.cuda.reset_peak_memory_stats()
-            _reset_launches()
+            tracing.reset()
             t0 = time.perf_counter()
             trainer = train_torch.main([
                 '--cfg_file', path, '--ckp_dir', run_dir,
@@ -2350,7 +2349,7 @@ def phase_families(data_dir, tmp):
         f'{f} {ms:.2f} ms/step in the epoch, wait {w:.3f} ms, {mem:.2f} '
         f'GiB; {_graph_summary(g)}'
         for f, (ms, w, mem, _, g) in rows.items()), flush=True)
-    _reset_launches()
+    tracing.reset()
     _family_resume('dgl', data_dir, tmp)
     for k, v in _launches().items():
         totals[k] += v
@@ -2641,7 +2640,7 @@ def _semantic_run(tag, cfg_path, opts, data_dir, run_dir, S, T, epochs):
     try:
         with _Timed('save_checkpoint', '_export_val_vis') as timed:
             torch.cuda.reset_peak_memory_stats()
-            _reset_launches()
+            tracing.reset()
             t0 = time.perf_counter()
             trainer = train_torch.main([
                 '--cfg_file', cfg_path, '--ckp_dir', run_dir, '--opts',
@@ -2734,7 +2733,7 @@ def phase_semantic(data_dir, tmp):
     # epoch 3 with every tensor bitwise; epoch 3 in both from the same
     # generator states gives the same losses and weights
     tag = 'semantic[slot wire] resume'
-    _reset_launches()
+    tracing.reset()
     second = Trainer(first.cfg, 'cuda', ckp_dir=runs['slot wire'],
                      quiet=True)
     differ = _differing(_state(second), _state(first))
@@ -3087,7 +3086,7 @@ def _graph_run(label, path, opts, mode, S, data_dir, tmp):
         out, totals = {}, {}
         for name, trainer in (('graph', graph), ('eager', eager)):
             torch.cuda.set_rng_state(rng)
-            _reset_launches()
+            tracing.reset()
             torch.cuda.reset_peak_memory_stats()
             rows = _run_groups(trainer, groups[:1])
             first = _state(trainer)
@@ -3146,7 +3145,7 @@ def _graph_run(label, path, opts, mode, S, data_dir, tmp):
     want = {k: v * compiled.traced for k, v in per_body.items()}
     sampler = None if semantic or 'False' in opts else \
         ('sample_chunked' if 'chunked' in opts else 'sample_dense')
-    for key in DS.LAUNCHES:
+    for key in SAMPLER_KEYS:
         want[key] = n_batches if key == sampler else 0
     print(f'{tag}: wrapper launches of the graphed run {g_launch} (expected '
           f'{compiled.traced} traced bodies x {per_body}, the sampler once '
@@ -3515,7 +3514,7 @@ def _ddp_rank_step(inp, sync_bn, device):
     n = B // dist.world()
     rows = slice(dist.rank() * n, (dist.rank() + 1) * n)
     data = {k: v[rows].to(device) for k, v in inp['batch'].items()}
-    _reset_launches()
+    tracing.reset()
     logs = optimize_step(model, opt, cfg, data)
     torch.cuda.synchronize()
     launches = _launches()
@@ -3548,7 +3547,7 @@ def _ddp_rank_trainer(data_dir, run_dir):
     Trainer.validate = counted_validate
     try:
         torch.cuda.reset_peak_memory_stats()
-        _reset_launches()
+        tracing.reset()
         t0 = time.perf_counter()
         trainer = train_torch.main([
             '--cfg_file', FLAGSHIP_CFG, '--ckp_dir', run_dir, '--opts',
@@ -3666,7 +3665,7 @@ def phase_ddp(data_dir, tmp):
     device and host time a step, and each rank's peak memory.  Returns the
     launch counts of this process and of the ranks."""
     from multi_part_assembly_tpu_torch.models import build_model
-    _reset_launches()
+    tracing.reset()
     folder = os.path.join(tmp, 'ddp')
     run_dir = os.path.join(folder, 'run')
     os.makedirs(folder)
@@ -3834,7 +3833,7 @@ def main():
         repulsion_launches = _timed(phase_repulsion)
         launches = _timed(phase_main, data_dir, tmp)
         # the PointNet kernels' rows count the flagship's main runs alone
-        main_bn = {k: launches[k] for k in (*MBN.LAUNCHES, *MP.LAUNCHES)}
+        main_bn = {k: launches[k] for k in (*BN_KEYS, *POOL_KEYS)}
         _timed(phase_placement, data_dir, tmp)
         for phase in (_timed(phase_resume, data_dir, tmp),
                       _timed(phase_families, data_dir, tmp),

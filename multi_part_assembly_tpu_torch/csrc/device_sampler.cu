@@ -50,7 +50,7 @@
 // Chunked: by frac < prob, floats 0-7 (the first sector) or 12-19 (the
 // rest of the middle one and the last) as two 16-byte loads.  One sector
 // fewer a point outweighs the extra round: the whole record in one round
-// took longer, cold and warm (scripts/sampler_reads_torch.py, PERF.md).
+// took longer, cold and warm (PERF.md).
 // Cold, a launch is set by its chain of dependent HBM reads and by the
 // records' bytes: a piece whose faces are nearly all drawn (everyday, N >=
 // F) moves its records whole, so the dense record holds only what a draw

@@ -38,7 +38,8 @@ its plain PyTorch version on the same inputs (`sample_dense_records_plain`,
 rounded operations; `sample_dense_plain` and `sample_chunked_plain` are the
 same draws read from the tables' JAX layout, the references.  A CPU tensor
 takes the plain version, since no kernel exists for the CPU; a CUDA tensor
-launches the kernel or raises.  `LAUNCHES` counts the kernel launches.
+launches the kernel or raises; each launch counts `launch.sample_dense`
+or `launch.sample_chunked` (ops/cuda_build.py `launch`).
 
 The uniforms are `[K, 3, N]` f32 (rows 0-2 of the JAX package's
 `[K, 8, Npad]`: face draw, sqrt argument, barycentric mix), drawn with
@@ -51,15 +52,14 @@ import numpy as np
 import torch
 
 from .geometry import expand_geometry_batch
-from ..ops.cuda_build import load_library
+from ..ops.cuda_build import launch, require
 from ..utils import tracing
 
 __all__ = ['DeviceTables', 'build_device_tables', 'table_records',
            'jax_table', 'sample_packed', 'sample_packed_ref',
            'sample_and_expand', 'sample_dense_cuda', 'sample_chunked_cuda',
            'sample_dense_plain', 'sample_dense_records_plain',
-           'sample_chunked_plain', 'sample_records_plain', 'LAUNCHES',
-           'reset_launches']
+           'sample_chunked_plain', 'sample_records_plain']
 
 # dense table row layout (per piece, [16, Fmax] f32), and the values of a
 # dense record ([3, 4] f32 a face: the rows 0-10, one float of padding)
@@ -84,14 +84,6 @@ _META_NCH = 2     # chunk count (= ceil(nf / Fc))
 
 # sampling stream domain separator (JAX device_sampler.py:461)
 _BASE_KEY = 0x5e1ec7ab
-
-LAUNCHES = {'sample_dense': 0, 'sample_chunked': 0}
-
-
-def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
 
 def _round_up(x, m):
     return -(-x // m) * m
@@ -241,24 +233,11 @@ def build_device_tables(paths, sampler, device, budget_bytes=4 * 1024 ** 3,
 # ---------------------------------------------------------------------------
 
 
-def _require(t, name, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f'{name}: expected a tensor on {device}, got '
-                         f'{t.device}')
-    if t.dtype != dtype:
-        raise ValueError(f'{name}: expected {dtype}, got {t.dtype}')
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f'{name}: expected shape {tuple(shape)}, '
-                         f'got {tuple(t.shape)}')
-    if not t.is_contiguous():
-        raise ValueError(f'{name}: expected a contiguous tensor')
-
-
-def _launch(fn_name, table, name, shape, width, index, slots, uniforms,
+def _launch(fn_name, key, table, name, shape, width, index, slots, uniforms,
             n_pieces, return_draws):
     """Checks, output allocation and one launch of a sampling kernel on
     `table` (named `name`, of `shape`, -1 for any extent) whose face axis
-    has `width` entries."""
+    has `width` entries, counted as `launch.<key>`."""
     device = table.device
     if device.type != 'cuda':
         raise ValueError(f'{name}: expected a CUDA tensor, got {device}')
@@ -266,24 +245,19 @@ def _launch(fn_name, table, name, shape, width, index, slots, uniforms,
             s not in (-1, t) for s, t in zip(shape, table.shape)):
         raise ValueError(f'{name}: expected shape {list(shape)}, got '
                          f'{tuple(table.shape)}')
-    _require(table, name, torch.float32, table.shape, device)
-    _require(index, 'n_faces', torch.int32, index.shape, device)
+    require(table, name, torch.float32, table.shape, device)
+    require(index, 'n_faces', torch.int32, index.shape, device)
     K = slots.shape[0]
     N = uniforms.shape[-1]
-    _require(slots, 'slots', torch.int32, (K, ), device)
-    _require(uniforms, 'uniforms', torch.float32, (K, 3, N), device)
+    require(slots, 'slots', torch.int32, (K, ), device)
+    require(uniforms, 'uniforms', torch.float32, (K, 3, N), device)
     out = torch.empty((K, N, 3), dtype=torch.float32, device=device)
     draws = torch.empty((K, N), dtype=torch.int32, device=device) \
         if return_draws else None
-    lib = load_library()
-    with torch.cuda.device(device):
-        rc = getattr(lib, fn_name)(
-            table.data_ptr(), index.data_ptr(), slots.data_ptr(),
-            uniforms.data_ptr(), out.data_ptr(),
-            None if draws is None else draws.data_ptr(), K, N, width,
-            n_pieces, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f'{fn_name}: CUDA error {rc}')
+    launch(fn_name, key, device, table.data_ptr(), index.data_ptr(),
+           slots.data_ptr(), uniforms.data_ptr(), out.data_ptr(),
+           None if draws is None else draws.data_ptr(), K, N, width,
+           n_pieces)
     return out, draws
 
 
@@ -305,10 +279,10 @@ def sample_dense_cuda(records, n_faces, slots, uniforms, return_draws=False):
         points [K, N, 3] f32, and with `return_draws` the sampled face of
         each point, [K, N] int32
     """
-    out, draws = _launch('mpa_sample_dense', records, 'records',
-                         (-1, -1, *_REC_D), records.shape[1], n_faces, slots,
-                         uniforms, n_faces.shape[0], return_draws)
-    LAUNCHES['sample_dense'] += 1
+    out, draws = _launch('mpa_sample_dense', 'sample_dense', records,
+                         'records', (-1, -1, *_REC_D), records.shape[1],
+                         n_faces, slots, uniforms, n_faces.shape[0],
+                         return_draws)
     return (out, draws) if return_draws else out
 
 
@@ -332,10 +306,9 @@ def sample_chunked_cuda(records, meta, slots, uniforms, return_draws=False):
     if meta.dim() != 2 or meta.shape[0] < 3:
         raise ValueError(f'meta: expected shape [3 + Cmax, n_pieces], got '
                          f'{tuple(meta.shape)}')
-    out, draws = _launch('mpa_sample_chunked', records, 'records',
-                         (-1, -1, _N_ROWS_C), records.shape[1], meta, slots,
-                         uniforms, meta.shape[1], return_draws)
-    LAUNCHES['sample_chunked'] += 1
+    out, draws = _launch('mpa_sample_chunked', 'sample_chunked', records,
+                         'records', (-1, -1, _N_ROWS_C), records.shape[1],
+                         meta, slots, uniforms, meta.shape[1], return_draws)
     return (out, draws) if return_draws else out
 
 

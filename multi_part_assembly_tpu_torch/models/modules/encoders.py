@@ -37,7 +37,7 @@ class PointNet(nn.Module):
     pooled output are f32.  Each ReLU runs inside its batch norm's call
     (`relu=True`), on the card in the same kernel.  The pool is the device
     region `max_pool` (`ops/max_pool.py`: the kernels on the card, each
-    call there counted as `pool.kernel`).
+    launch counted as `launch.pool_fwd` or `launch.pool_bwd`).
     """
 
     def __init__(self, feat_dim, compute_dtype=torch.float32):
@@ -60,8 +60,6 @@ class PointNet(nn.Module):
             x = F.linear(x, w.to(cdt))
             x = getattr(self, f'bn{i}')(x, point_mask, relu=i < 5)
         x, = tracing.region_begin('max_pool', x)
-        if x.is_cuda:
-            tracing.count('pool.kernel')
         out, = tracing.region_end('max_pool', max_pool(x))
         return out
 

@@ -46,8 +46,8 @@ count or row count the kernels do not take raises, ops/masked_bn.py
 alone, sync BN over several ranks and the CPU take the plain PyTorch
 arithmetic (ops/masked_bn.py `moments_plain`, `affine`,
 `normalize_plain`).  The running statistics update from either route's
-moments by the same expressions.  Each call on a CUDA tensor counts
-`bn.fused` or `bn.plain` (utils/tracing.py).
+moments by the same expressions.  The kernels count their launches
+(`launch.bn_moments`, ..., ops/cuda_build.py `launch`).
 """
 
 import contextlib
@@ -178,8 +178,6 @@ class MaskedBatchNorm(nn.Module):
     def _normalize(self, x, mask, stats, affine_only, relu):
         """`forward` without its marks."""
         route = self.route(x, stats, affine_only)
-        if x.is_cuda:
-            tracing.count('bn.' + route)
         if route == 'fused':
             x = MB.kernel_rows(x)
             w, fan = MB.row_weights(mask, x.shape)

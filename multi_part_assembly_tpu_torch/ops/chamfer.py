@@ -37,8 +37,9 @@ Beside the kernels sit their plain PyTorch versions (`nn_pair_plain` and
 `prune_keep_plain`, `chamfer_grad_plain`, `nn_parts_plain`,
 `nn_dir_plain`), computing the same distance expression in the same order.
 A CPU tensor takes the plain version of its route, since no kernel exists
-for the CPU; a CUDA tensor launches the kernel or raises.  `LAUNCHES`
-counts the kernel launches, one key per (kernel, mode).
+for the CPU; a CUDA tensor launches the kernel or raises.  Each launch
+counts `launch.<key>`, one key per (kernel, mode): `nn_parts`, `nn_diag`
+(B1/B3), `bwd_parts`, `bwd_diag` (B2/B4), `nn_off` (B8), `nn_dir` (B7).
 """
 
 import os
@@ -46,7 +47,7 @@ import os
 import torch
 from torch.autograd.function import once_differentiable
 
-from .cuda_build import load_library
+from .cuda_build import launch, require
 
 __all__ = ['chamfer_parts', 'chamfer_diag', 'chamfer_pairs',
            'chamfer_parts_ref', 'chamfer_diag_ref', 'chamfer_witnesses',
@@ -55,10 +56,7 @@ __all__ = ['chamfer_parts', 'chamfer_diag', 'chamfer_pairs',
            'nn_pair_plain', 'nn_plain', 'pack_keys', 'unpack_keys',
            'prune_keep_plain', 'chamfer_grad_cuda',
            'chamfer_grad_plain', 'nn_parts_cuda', 'nn_parts_plain',
-           'nn_dir_cuda', 'nn_dir_plain', 'LAUNCHES', 'reset_launches']
-
-LAUNCHES = {'nn_parts': 0, 'nn_diag': 0, 'bwd_parts': 0, 'bwd_diag': 0,
-            'nn_off': 0, 'nn_dir': 0}
+           'nn_dir_cuda', 'nn_dir_plain']
 
 # query rows per distance block of the plain whole-shape version: bounds
 # its [rows, P*N] f32 temporaries (one dense [P*N]^2 tile is 1.6 GB at
@@ -75,11 +73,6 @@ _PLAIN_PAIRS = 2**25
 _LANES = 128
 _MODES = ('auto', 'force', 'off')
 _FUSED_MODE = 'auto'
-
-
-def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _part_counts(valids):
@@ -119,23 +112,6 @@ _PRUNE_SLACK = 1e-4
 # ---------------------------------------------------------------------------
 
 
-def _require(t, name, dtype, shape):
-    if t.device.type != 'cuda':
-        raise ValueError(f'{name}: expected a CUDA tensor, got {t.device}')
-    if t.dtype != dtype:
-        raise ValueError(f'{name}: expected {dtype}, got {t.dtype}')
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f'{name}: expected shape {tuple(shape)}, '
-                         f'got {tuple(t.shape)}')
-    if not t.is_contiguous():
-        raise ValueError(f'{name}: expected a contiguous tensor')
-
-
-def _check_rc(rc, what):
-    if rc != 0:
-        raise RuntimeError(f'{what}: CUDA error {rc}')
-
-
 def nn_pair_cuda(x, y, n_parts, diagonal, prune=False, work=None):
     """Kernel B1/B3: both directions of the part-structured nearest
     neighbour in one main launch: every valid point of x among the valid
@@ -160,9 +136,9 @@ def nn_pair_cuda(x, y, n_parts, diagonal, prune=False, work=None):
         -1 at padded parts)
     """
     B, P, N, _ = x.shape
-    _require(x, 'x', torch.float32, (B, P, N, 3))
-    _require(y, 'y', torch.float32, (B, P, N, 3))
-    _require(n_parts, 'n_parts', torch.int32, (B, ))
+    require(x, 'x', torch.float32, (B, P, N, 3), 'cuda')
+    require(y, 'y', torch.float32, (B, P, N, 3), x.device)
+    require(n_parts, 'n_parts', torch.int32, (B, ), x.device)
     if B * P * P >= 2**31:
         raise ValueError(f'B * P * P = {B * P * P}: the work list holds '
                          'int32 part-pair ids')
@@ -171,20 +147,15 @@ def nn_pair_cuda(x, y, n_parts, diagonal, prune=False, work=None):
     keys = torch.empty(2 * B * P * N, dtype=torch.int64, device=dev)
     if work is None:
         work = torch.empty(1 + B * P * P, dtype=torch.int32, device=dev)
-    _require(work, 'work', torch.int32, (1 + B * P * P, ))
+    require(work, 'work', torch.int32, (1 + B * P * P, ), x.device)
     d1, d2 = (torch.empty((B, P, N), dtype=torch.float32, device=dev)
               for _ in range(2))
     w1, w2 = (torch.empty((B, P, N), dtype=torch.int32, device=dev)
               for _ in range(2))
-    lib = load_library()
-    with torch.cuda.device(dev):
-        rc = lib.mpa_chamfer_pair(
-            x.data_ptr(), y.data_ptr(), n_parts.data_ptr(), keys.data_ptr(),
-            work.data_ptr(), d1.data_ptr(), d2.data_ptr(), w1.data_ptr(),
-            w2.data_ptr(), B, P, N, mode,
-            torch.cuda.current_stream().cuda_stream)
-    _check_rc(rc, 'mpa_chamfer_pair')
-    LAUNCHES['nn_diag' if diagonal else 'nn_parts'] += 1
+    launch('mpa_chamfer_pair', 'nn_diag' if diagonal else 'nn_parts', dev,
+           x.data_ptr(), y.data_ptr(), n_parts.data_ptr(), keys.data_ptr(),
+           work.data_ptr(), d1.data_ptr(), d2.data_ptr(), w1.data_ptr(),
+           w2.data_ptr(), B, P, N, mode)
     return d1, d2, w1, w2
 
 
@@ -219,26 +190,23 @@ def chamfer_grad_cuda(x, y, n_parts, w1, w2, g1, g2, diagonal, need_dy):
         exact zeros at padded parts
     """
     B, P, N, _ = x.shape
-    _require(x, 'x', torch.float32, (B, P, N, 3))
-    _require(y, 'y', torch.float32, (B, P, N, 3))
-    _require(n_parts, 'n_parts', torch.int32, (B, ))
-    _require(w1, 'w1', torch.int32, (B, P, N))
-    _require(w2, 'w2', torch.int32, (B, P, N))
+    require(x, 'x', torch.float32, (B, P, N, 3), 'cuda')
+    require(y, 'y', torch.float32, (B, P, N, 3), x.device)
+    require(n_parts, 'n_parts', torch.int32, (B, ), x.device)
+    require(w1, 'w1', torch.int32, (B, P, N), x.device)
+    require(w2, 'w2', torch.int32, (B, P, N), x.device)
     for g, name in ((g1, 'g1'), (g2, 'g2')):
         if g is not None:
-            _require(g, name, torch.float32, (B, P, N))
+            require(g, name, torch.float32, (B, P, N), x.device)
     dx = torch.empty_like(x)
     dy = torch.empty_like(y) if need_dy else None
-    lib = load_library()
-    with torch.cuda.device(x.device):
-        rc = lib.mpa_chamfer_grad(
-            x.data_ptr(), y.data_ptr(), n_parts.data_ptr(), w1.data_ptr(),
-            w2.data_ptr(), None if g1 is None else g1.data_ptr(),
-            None if g2 is None else g2.data_ptr(), dx.data_ptr(),
-            None if dy is None else dy.data_ptr(), B, P, N,
-            2 if diagonal else 0, torch.cuda.current_stream().cuda_stream)
-    _check_rc(rc, 'mpa_chamfer_grad')
-    LAUNCHES['bwd_diag' if diagonal else 'bwd_parts'] += 1
+    launch('mpa_chamfer_grad', 'bwd_diag' if diagonal else 'bwd_parts',
+           x.device, x.data_ptr(), y.data_ptr(), n_parts.data_ptr(),
+           w1.data_ptr(), w2.data_ptr(),
+           None if g1 is None else g1.data_ptr(),
+           None if g2 is None else g2.data_ptr(), dx.data_ptr(),
+           None if dy is None else dy.data_ptr(), B, P, N,
+           2 if diagonal else 0)
     return dx, dy
 
 
@@ -261,9 +229,9 @@ def nn_parts_cuda(x, y, n_parts):
         round_up(N, 128) (0 at padded parts)
     """
     B, P, N, _ = x.shape
-    _require(x, 'x', torch.float32, (B, P, N, 3))
-    _require(y, 'y', torch.float32, (B, P, N, 3))
-    _require(n_parts, 'n_parts', torch.int32, (B, ))
+    require(x, 'x', torch.float32, (B, P, N, 3), 'cuda')
+    require(y, 'y', torch.float32, (B, P, N, 3), x.device)
+    require(n_parts, 'n_parts', torch.int32, (B, ), x.device)
     if B * P * P >= 2**31:
         raise ValueError(f'B * P * P = {B * P * P}: the work list holds '
                          'int32 part-pair ids')
@@ -272,14 +240,9 @@ def nn_parts_cuda(x, y, n_parts):
     work = torch.empty(1 + B * P * P, dtype=torch.int32, device=dev)
     dist = torch.empty((B, P, N), dtype=torch.float32, device=dev)
     idx = torch.empty((B, P, N), dtype=torch.int32, device=dev)
-    lib = load_library()
-    with torch.cuda.device(dev):
-        rc = lib.mpa_nn_parts(
-            x.data_ptr(), y.data_ptr(), n_parts.data_ptr(), keys.data_ptr(),
-            work.data_ptr(), dist.data_ptr(), idx.data_ptr(), B, P, N,
-            _round_up(N, _LANES), torch.cuda.current_stream().cuda_stream)
-    _check_rc(rc, 'mpa_nn_parts')
-    LAUNCHES['nn_off'] += 1
+    launch('mpa_nn_parts', 'nn_off', dev, x.data_ptr(), y.data_ptr(),
+           n_parts.data_ptr(), keys.data_ptr(), work.data_ptr(),
+           dist.data_ptr(), idx.data_ptr(), B, P, N, _round_up(N, _LANES))
     return dist, idx
 
 
@@ -299,19 +262,14 @@ def nn_dir_cuda(x, y):
     """
     B, N1, _ = x.shape
     N2 = y.shape[1]
-    _require(x, 'x', torch.float32, (B, N1, 3))
-    _require(y, 'y', torch.float32, (B, N2, 3))
+    require(x, 'x', torch.float32, (B, N1, 3), 'cuda')
+    require(y, 'y', torch.float32, (B, N2, 3), x.device)
     if N2 == 0:
         raise ValueError('y: no target points')
     dist = torch.empty((B, N1), dtype=torch.float32, device=x.device)
     idx = torch.empty((B, N1), dtype=torch.int32, device=x.device)
-    lib = load_library()
-    with torch.cuda.device(x.device):
-        rc = lib.mpa_nn_dir(x.data_ptr(), y.data_ptr(), dist.data_ptr(),
-                            idx.data_ptr(), B, N1, N2,
-                            torch.cuda.current_stream().cuda_stream)
-    _check_rc(rc, 'mpa_nn_dir')
-    LAUNCHES['nn_dir'] += 1
+    launch('mpa_nn_dir', 'nn_dir', x.device, x.data_ptr(), y.data_ptr(),
+           dist.data_ptr(), idx.data_ptr(), B, N1, N2)
     return dist, idx
 
 

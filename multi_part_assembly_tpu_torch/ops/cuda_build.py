@@ -8,6 +8,10 @@ takes minutes.  The library lands in
 named by a hash of the sources and flags, so an edited source rebuilds and
 an unchanged one is reused.  Nothing here runs at import time: the CPU
 tests import every module on a machine with no nvcc.
+
+Every kernel launch goes through `launch`, which checks the launch and
+counts it as the tracer's counter `launch.<key>` (utils/tracing.py); every
+tensor a kernel reads or writes is checked by `require` first.
 """
 
 import ctypes
@@ -19,7 +23,10 @@ import subprocess
 import tempfile
 import threading
 
-__all__ = ['load_library', 'build_seconds', 'NVCC_FLAGS']
+import torch
+
+__all__ = ['load_library', 'build_seconds', 'launch', 'require',
+           'NVCC_FLAGS']
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), 'csrc')
@@ -141,3 +148,35 @@ def _build():
 def build_seconds():
     """Seconds the first load_library() took (None before it ran)."""
     return _build_seconds
+
+
+def launch(name, key, device, *args):
+    """Launch the entry point `name` (`mpa_chamfer_pair`, ...) with `args`
+    and the current stream of `device` under its device guard; raise
+    RuntimeError on a non-zero return, else count `launch.<key>`."""
+    from ..utils import tracing  # not at import: utils imports ops
+    lib = load_library()
+    with torch.cuda.device(device):
+        rc = getattr(lib, name)(*args,
+                                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f'{name}: CUDA error {rc}')
+    tracing.count('launch.' + key)
+
+
+def require(t, name, dtype, shape, device):
+    """Raise ValueError unless `t` is a contiguous `dtype` tensor of
+    `shape` on `device` (a device without an index: any CUDA device)."""
+    device = torch.device(device)
+    if t.device.type != 'cuda' or \
+            (device.index is not None and t.device != device):
+        where = 'a CUDA tensor' if device.index is None else \
+            f'a tensor on {device}'
+        raise ValueError(f'{name}: expected {where}, got {t.device}')
+    if t.dtype != dtype:
+        raise ValueError(f'{name}: expected {dtype}, got {t.dtype}')
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f'{name}: expected shape {tuple(shape)}, '
+                         f'got {tuple(t.shape)}')
+    if not t.is_contiguous():
+        raise ValueError(f'{name}: expected a contiguous tensor')

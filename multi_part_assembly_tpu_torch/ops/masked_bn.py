@@ -26,9 +26,10 @@ picks one):
 A CPU tensor takes the plain version; a CUDA tensor given to a kernel
 launches it or raises: the kernels take contiguous, 16-byte aligned rows
 (`kernel_rows` makes them so) of a multiple of 8 bf16 or f32 channels, at
-most MAX_ROWS rows, and nothing falls back.  `LAUNCHES` counts the kernel
-launches: `bn_moments` and `bn_backward` are each a reduction and the
-launch that finishes it (and `bn_backward` the dx pass), `bn_apply` one.
+most MAX_ROWS rows, and nothing falls back.  Each call of a kernel counts
+`launch.bn_moments`, `launch.bn_apply` or `launch.bn_backward`: the first
+and the last are each a reduction and the launch that finishes it (and
+`bn_backward` the dx pass), `bn_apply` one.
 """
 
 import math
@@ -36,24 +37,16 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .cuda_build import load_library
+from .cuda_build import launch, load_library, require
 
 __all__ = ['masked_bn', 'MaskedBatchNormFn', 'moments_plain', 'affine',
            'normalize_plain', 'row_weights', 'kernel_rows',
-           'moments_cuda', 'apply_cuda', 'backward_cuda', 'LAUNCHES',
-           'reset_launches']
-
-LAUNCHES = {'bn_moments': 0, 'bn_apply': 0, 'bn_backward': 0}
+           'moments_cuda', 'apply_cuda', 'backward_cuda']
 
 # the kernels' activation types (csrc/masked_bn.cu's `dtype` codes)
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # rows the kernels take: their f32 counts of rows stay exact integers
 MAX_ROWS = 2**24
-
-
-def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -124,15 +117,6 @@ def kernel_rows(t):
     return t.clone() if t.data_ptr() % 16 else t
 
 
-def _check(t, name, dtype, shape):
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or \
-            not t.is_contiguous():
-        raise ValueError(f'{name}: expected a contiguous {dtype} tensor of '
-                         f'shape {tuple(shape)}, got {t.dtype} '
-                         f'{tuple(t.shape)} (contiguous: '
-                         f'{t.is_contiguous()})')
-
-
 def _rows(x):
     """(R, C, dtype code) of x: contiguous, 16-byte aligned rows of a
     multiple of 8 bf16 or f32 channels, 1 to MAX_ROWS of them; else
@@ -152,32 +136,22 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launched(rc, name, key):
-    if rc != 0:
-        raise RuntimeError(f'{name}: CUDA error {rc}')
-    LAUNCHES[key] += 1
-
-
 def moments_cuda(x, w, fan):
     """Kernel `mpa_bn_moments`: (mean, var, denom) f32 of x's rows
     ([..., C], `_rows`) weighted by w ([R / fan] f32, or None for weight 1),
     the rows of a group of weight 0 never read."""
     R, C, code = _rows(x)
     if w is not None:
-        _check(w, 'w', torch.float32, (R // fan, ))
-    lib = load_library()
-    parts = lib.mpa_bn_parts(R, C)
+        require(w, 'w', torch.float32, (R // fan, ), x.device)
+    parts = load_library().mpa_bn_parts(R, C)
     scratch = torch.empty(parts * (1 + 2 * C), dtype=torch.float32,
                           device=x.device)
     mean, var = (torch.empty(C, dtype=torch.float32, device=x.device)
                  for _ in range(2))
     denom = torch.empty((), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.mpa_bn_moments(
-            x.data_ptr(), _ptr(w), R, C, fan, code, scratch.data_ptr(),
-            mean.data_ptr(), var.data_ptr(), denom.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    _launched(rc, 'mpa_bn_moments', 'bn_moments')
+    launch('mpa_bn_moments', 'bn_moments', x.device, x.data_ptr(), _ptr(w),
+           R, C, fan, code, scratch.data_ptr(), mean.data_ptr(),
+           var.data_ptr(), denom.data_ptr())
     return mean, var, denom
 
 
@@ -186,15 +160,12 @@ def apply_cuda(x, factor, offset, relu):
     each rounded to x's type, then the ReLU; factor and offset [C] in x's
     type."""
     R, C, code = _rows(x)
-    _check(factor, 'factor', x.dtype, (C, ))
-    _check(offset, 'offset', x.dtype, (C, ))
+    require(factor, 'factor', x.dtype, (C, ), x.device)
+    require(offset, 'offset', x.dtype, (C, ), x.device)
     y = torch.empty_like(x)
-    lib = load_library()
-    with torch.cuda.device(x.device):
-        rc = lib.mpa_bn_apply(
-            x.data_ptr(), factor.data_ptr(), offset.data_ptr(), y.data_ptr(),
-            R, C, code, int(relu), torch.cuda.current_stream().cuda_stream)
-    _launched(rc, 'mpa_bn_apply', 'bn_apply')
+    launch('mpa_bn_apply', 'bn_apply', x.device, x.data_ptr(),
+           factor.data_ptr(), offset.data_ptr(), y.data_ptr(), R, C, code,
+           int(relu))
     return y
 
 
@@ -206,32 +177,27 @@ def backward_cuda(dy, x, factor, offset, w, fan, weight, mean, rstd, denom,
     of x under w (`moments_cuda`).  f32 throughout, dx rounded once to x's
     type."""
     R, C, code = _rows(x)
-    _check(dy, 'dy', x.dtype, x.shape)
+    require(dy, 'dy', x.dtype, x.shape, x.device)
     if dy.data_ptr() % 16:
         raise ValueError('dy: expected 16-byte aligned rows')
     for t, name in ((factor, 'factor'), (offset, 'offset')):
-        _check(t, name, x.dtype, (C, ))
+        require(t, name, x.dtype, (C, ), x.device)
     for t, name in ((weight, 'weight'), (mean, 'mean'), (rstd, 'rstd')):
-        _check(t, name, torch.float32, (C, ))
-    _check(denom, 'denom', torch.float32, ())
+        require(t, name, torch.float32, (C, ), x.device)
+    require(denom, 'denom', torch.float32, (), x.device)
     if w is not None:
-        _check(w, 'w', torch.float32, (R // fan, ))
-    lib = load_library()
-    parts = lib.mpa_bn_parts(R, C)
+        require(w, 'w', torch.float32, (R // fan, ), x.device)
+    parts = load_library().mpa_bn_parts(R, C)
     scratch = torch.empty(parts * 2 * C + 2 * C, dtype=torch.float32,
                           device=x.device)
     dweight, dbias = (torch.empty(C, dtype=torch.float32, device=x.device)
                       for _ in range(2))
     dx = torch.empty_like(x) if need_dx else None
-    with torch.cuda.device(x.device):
-        rc = lib.mpa_bn_backward(
-            dy.data_ptr(), x.data_ptr(), factor.data_ptr(),
-            offset.data_ptr(), _ptr(w), fan, weight.data_ptr(),
-            mean.data_ptr(), rstd.data_ptr(), denom.data_ptr(), R, C, code,
-            int(relu), scratch.data_ptr(),
-            dweight.data_ptr(), dbias.data_ptr(), _ptr(dx),
-            torch.cuda.current_stream().cuda_stream)
-    _launched(rc, 'mpa_bn_backward', 'bn_backward')
+    launch('mpa_bn_backward', 'bn_backward', x.device, dy.data_ptr(),
+           x.data_ptr(), factor.data_ptr(), offset.data_ptr(), _ptr(w), fan,
+           weight.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+           denom.data_ptr(), R, C, code, int(relu), scratch.data_ptr(),
+           dweight.data_ptr(), dbias.data_ptr(), _ptr(dx))
     return dx, dweight, dbias
 
 

@@ -21,7 +21,7 @@ constant, so that it splits into the per-group problems.
 The JAX solve is XLA while-loops, not a Pallas kernel.  Eager PyTorch runs
 the plain version as thousands of small launches a call (about 6,000 at
 n = 20, whatever the number of problems), which is why the card has a
-kernel for it.  `LAUNCHES['lap']` counts L1's launches.
+kernel for it.  Each launch of L1 counts `launch.lap`.
 """
 
 import numpy as np
@@ -29,20 +29,14 @@ import torch
 
 from ..utils import tracing
 from ..utils.transforms import transform_pc
-from .cuda_build import load_library
+from .cuda_build import launch, require
 
 __all__ = ['solve_lap', 'solve_lap_plain', 'solve_lap_cuda',
-           'hungarian_scipy', 'match_parts', 'lap_cost', 'LAUNCHES',
-           'reset_launches', 'MAX_LAP_N']
+           'hungarian_scipy', 'match_parts', 'lap_cost', 'MAX_LAP_N']
 
 _BIG = 1e9
 # one warp a problem, one lane a column
 MAX_LAP_N = 32
-LAUNCHES = {'lap': 0}
-
-
-def reset_launches():
-    LAUNCHES['lap'] = 0
 
 
 def solve_lap_plain(cost):
@@ -111,25 +105,16 @@ def solve_lap_plain(cost):
 def solve_lap_cuda(cost):
     """Kernel L1 on `[M, n, n]` f32 CUDA cost, contiguous, n <= 32 ->
     `[M, n]` int32 col4row."""
-    M, n, n2 = cost.shape
-    if cost.device.type != 'cuda':
-        raise ValueError(f'cost: expected a CUDA tensor, got {cost.device}')
-    if cost.dtype != torch.float32 or not cost.is_contiguous() or n != n2:
-        raise ValueError('cost: expected a contiguous [M, n, n] float32 '
-                         f'tensor, got {cost.dtype} {tuple(cost.shape)}')
+    M, n, _ = cost.shape
+    require(cost, 'cost', torch.float32, (M, n, n), 'cuda')
     if n > MAX_LAP_N:
         raise ValueError(f'solve_lap on CUDA takes n <= {MAX_LAP_N} (one '
                          f'warp a problem), got n = {n}')
     out = torch.empty((M, n), dtype=torch.int32, device=cost.device)
     if M == 0 or n == 0:
         return out
-    lib = load_library()
-    with torch.cuda.device(cost.device):
-        rc = lib.mpa_lap(cost.data_ptr(), out.data_ptr(), M, n,
-                         torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f'mpa_lap: CUDA error {rc}')
-    LAUNCHES['lap'] += 1
+    launch('mpa_lap', 'lap', cost.device, cost.data_ptr(), out.data_ptr(),
+           M, n)
     return out
 
 

@@ -22,28 +22,22 @@ Two routes compute the same function, `max_pool(x)` picks one:
 A CPU tensor takes the plain version; a CUDA tensor launches the kernels or
 raises: they take bf16 or f32 clouds [..., N, C] of a multiple of 8
 channels, at most MAX_POINTS points, made contiguous and 16-byte aligned
-(`kernel_rows`), and nothing falls back.  `LAUNCHES` counts the launches.
+(`kernel_rows`), and nothing falls back.  Each launch counts
+`launch.pool_fwd` or `launch.pool_bwd`.
 """
 
 import math
 
 import torch
 
-from .cuda_build import load_library
+from .cuda_build import launch, require
 from .masked_bn import KERNEL_DTYPES, kernel_rows
 
 __all__ = ['max_pool', 'max_pool_plain', 'max_pool_cuda',
-           'max_pool_grad_cuda', 'MaxPoolFn', 'LAUNCHES', 'reset_launches']
-
-LAUNCHES = {'pool_fwd': 0, 'pool_bwd': 0}
+           'max_pool_grad_cuda', 'MaxPoolFn']
 
 # points a cloud the kernels take: their f32 tie counts stay exact
 MAX_POINTS = 2**24
-
-
-def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def max_pool_plain(x):
@@ -67,12 +61,6 @@ def _clouds(x):
     return math.prod(shape[:-2]), shape[-2], shape[-1], KERNEL_DTYPES[x.dtype]
 
 
-def _launched(rc, name, key):
-    if rc != 0:
-        raise RuntimeError(f'{name}: CUDA error {rc}')
-    LAUNCHES[key] += 1
-
-
 def max_pool_cuda(x):
     """Kernel `mpa_max_pool_fwd`: (out, count) of x [..., N, C]
     (`_clouds`): out f32 [..., C] the max over the points, count int32
@@ -81,12 +69,8 @@ def max_pool_cuda(x):
     out = torch.empty(x.shape[:-2] + (C, ), dtype=torch.float32,
                       device=x.device)
     count = torch.empty(out.shape, dtype=torch.int32, device=x.device)
-    lib = load_library()
-    with torch.cuda.device(x.device):
-        rc = lib.mpa_max_pool_fwd(
-            x.data_ptr(), R, N, C, code, out.data_ptr(), count.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    _launched(rc, 'mpa_max_pool_fwd', 'pool_fwd')
+    launch('mpa_max_pool_fwd', 'pool_fwd', x.device, x.data_ptr(), R, N, C,
+           code, out.data_ptr(), count.data_ptr())
     return out, count
 
 
@@ -99,19 +83,11 @@ def max_pool_grad_cuda(x, out, count, g):
     for t, name, dtype in ((out, 'out', torch.float32),
                            (count, 'count', torch.int32),
                            (g, 'g', torch.float32)):
-        if t.dtype != dtype or t.shape != want or not t.is_contiguous() or \
-                t.device != x.device:
-            raise ValueError(f'{name}: expected a contiguous {dtype} tensor '
-                             f'of shape {tuple(want)} on {x.device}, got '
-                             f'{t.dtype} {tuple(t.shape)} on {t.device}')
+        require(t, name, dtype, want, x.device)
     dx = torch.empty_like(x)
-    lib = load_library()
-    with torch.cuda.device(x.device):
-        rc = lib.mpa_max_pool_bwd(
-            x.data_ptr(), out.data_ptr(), count.data_ptr(), g.data_ptr(), R,
-            N, C, code, dx.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    _launched(rc, 'mpa_max_pool_bwd', 'pool_bwd')
+    launch('mpa_max_pool_bwd', 'pool_bwd', x.device, x.data_ptr(),
+           out.data_ptr(), count.data_ptr(), g.data_ptr(), R, N, C, code,
+           dx.data_ptr())
     return dx
 
 

@@ -45,6 +45,11 @@ from multi_part_assembly_tpu_torch.datasets.mesh_io import \
 from multi_part_assembly_tpu_torch.ops import chamfer as TC  # noqa: E402
 from multi_part_assembly_tpu_torch.ops import \
     matching as TM  # noqa: E402
+from multi_part_assembly_tpu_torch.utils import tracing  # noqa: E402
+
+CHAMFER_KEYS = ('nn_parts', 'nn_diag', 'bwd_parts', 'bwd_diag', 'nn_off',
+                'nn_dir')
+BN_KEYS = ('bn_moments', 'bn_apply', 'bn_backward')
 
 
 @pytest.fixture
@@ -52,6 +57,12 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
     return torch.device('cuda')
+
+
+def _launches(keys):
+    """{key: launches counted as `launch.<key>` since `tracing.reset()`}."""
+    c = tracing.counters()
+    return {k: c.get('launch.' + k, 0) for k in keys}
 
 
 def _inputs(device, B=2, P=10, N=40, nparts=(6, 10), seed=0):
@@ -130,12 +141,13 @@ def test_launch_counters(cuda):
     fused route launches no B7 or B8."""
     x, y, valids = _inputs(cuda)
     x.requires_grad_()
-    TC.reset_launches()
+    tracing.reset()
     d1, d2 = TC.chamfer_parts(x, y, valids)
     (d1.sum() + d2.sum()).backward()
     TC.chamfer_diag(x.detach(), y, valids)
-    assert TC.LAUNCHES == {'nn_parts': 1, 'nn_diag': 1, 'bwd_parts': 1,
-                           'bwd_diag': 0, 'nn_off': 0, 'nn_dir': 0}
+    assert _launches(CHAMFER_KEYS) == {
+        'nn_parts': 1, 'nn_diag': 1, 'bwd_parts': 1, 'bwd_diag': 0,
+        'nn_off': 0, 'nn_dir': 0}
 
 
 @pytest.fixture
@@ -151,13 +163,14 @@ def test_unfused_route_launch_counters(cuda, unfused):
     chamfer_distance launches B7 once per direction."""
     x, y, valids = _inputs(cuda)
     x.requires_grad_()
-    TC.reset_launches()
+    tracing.reset()
     d1, d2 = TC.chamfer_parts(x, y, valids)
     (d1.sum() + d2.sum()).backward()
     TC.chamfer_diag(x.detach(), y, valids)
     TC.chamfer_distance(x.detach()[:, 0], y[:, 1])
-    assert TC.LAUNCHES == {'nn_parts': 0, 'nn_diag': 0, 'bwd_parts': 0,
-                           'bwd_diag': 0, 'nn_off': 4, 'nn_dir': 2}
+    assert _launches(CHAMFER_KEYS) == {
+        'nn_parts': 0, 'nn_diag': 0, 'bwd_parts': 0, 'bwd_diag': 0,
+        'nn_off': 4, 'nn_dir': 2}
 
 
 def _pair_clouds(device, B, P, N, nparts, kind, seed=0):
@@ -470,11 +483,12 @@ def test_sampler_layouts_agree_and_count(cuda, tmp_path):
     dense = _soup_tables(tmp_path, 'dense', cuda)
     chunk = _soup_tables(tmp_path, 'chunked', cuda)
     slots, u = _sampler_inputs(cuda, seed=1)
-    TDS.reset_launches()
+    tracing.reset()
     pd = TDS._sample_points(dense.table, dense.n_faces, slots, u)
     pc = TDS._sample_points(chunk.table, chunk.n_faces, slots, u)
     assert torch.equal(pd, pc)
-    assert TDS.LAUNCHES == {'sample_dense': 1, 'sample_chunked': 1}
+    samplers = ('sample_dense', 'sample_chunked')
+    assert _launches(samplers) == {'sample_dense': 1, 'sample_chunked': 1}
     with pytest.raises(ValueError, match='uniforms'):
         TDS.sample_dense_cuda(TDS.table_records(dense.table), dense.n_faces,
                               slots, u[:, :2])
@@ -492,7 +506,7 @@ def test_sampler_layouts_agree_and_count(cuda, tmp_path):
         # piece's
         assert torch.isnan(kernel(TDS.table_records(t.table), t.n_faces,
                                   bad, u)).all()
-    assert TDS.LAUNCHES == {'sample_dense': 2, 'sample_chunked': 2}
+    assert _launches(samplers) == {'sample_dense': 2, 'sample_chunked': 2}
 
 
 def _lap_costs(kind, M, n, seed):
@@ -514,10 +528,10 @@ def test_lap_kernel_matches_plain(cuda, kind, M, n):
     """Kernel L1 against solve_lap_plain on the card and on the CPU: the
     same assignment exactly; one launch counted."""
     cost = _lap_costs(kind, M, n, seed=M + n)
-    TM.reset_launches()
+    tracing.reset()
     got = TM.solve_lap(torch.tensor(cost, device=cuda))
     torch.cuda.synchronize()
-    assert TM.LAUNCHES['lap'] == 1
+    assert _launches(('lap', )) == {'lap': 1}
     assert got.dtype == torch.int32 and got.shape == (M, n)
     plain = TM.solve_lap_plain(torch.tensor(cost, device=cuda))
     cpu = TM.solve_lap_plain(torch.tensor(cost))
@@ -807,10 +821,8 @@ def test_max_pool_region_in_a_replayed_step(cuda, tmp_path, monkeypatch):
     """The flagship's graphed step at a small width: one replay launches
     the `max_pool` region inside `encoder` and `max_pool_bwd` inside
     `encoder_bwd`, once each; the pool's kernels launch once forward and
-    once backward a traced step body (two warm-ups and the capture), and
-    `pool.kernel` counts each body's PointNet call."""
-    from multi_part_assembly_tpu_torch.ops import max_pool as MP
-    from multi_part_assembly_tpu_torch.utils import tracing
+    once backward a traced step body (two warm-ups and the capture), not
+    in a replay."""
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), 'scripts'))
     from make_synthetic_data import generate
@@ -824,19 +836,18 @@ def test_max_pool_region_in_a_replayed_step(cuda, tmp_path, monkeypatch):
     loader.set_epoch(0)
     it = iter(loader)
     tracing.reset()
-    MP.reset_launches()
     graph._dispatch([next(it)], [0.0])  # two warm-ups and the capture
     traced = graph.compiled.traced
     assert traced == 3
-    assert MP.LAUNCHES == {'pool_fwd': traced, 'pool_bwd': traced}
-    assert tracing.counters().get('pool.kernel') == traced
+    pool = ('pool_fwd', 'pool_bwd')
+    assert _launches(pool) == {'pool_fwd': traced, 'pool_bwd': traced}
     batch = next(it)
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         graph._dispatch([batch], [0.0])
         torch.cuda.synchronize()
     it.close()
-    assert MP.LAUNCHES == {'pool_fwd': traced, 'pool_bwd': traced}
+    assert _launches(pool) == {'pool_fwd': traced, 'pool_bwd': traced}
     events = sorted((ev.start_ns(), ev.name())
                     for ev in prof.profiler.kineto_results.events()
                     if 'mpa_mark_' in ev.name())
@@ -1061,12 +1072,11 @@ def test_masked_bn_no_valid_cloud(cuda):
 @pytest.mark.cuda
 def test_masked_bn_eval_mode(cuda):
     """Eval mode on the card takes the plain arithmetic with the running
-    statistics (`bn.plain`, no kernel launched): output bitwise the plain
-    formulas', gradients autograd's of them."""
+    statistics (route 'plain', no kernel launched): output bitwise the
+    plain formulas', gradients autograd's of them."""
     from multi_part_assembly_tpu_torch.models.modules.norm import \
         MaskedBatchNorm
     from multi_part_assembly_tpu_torch.ops import masked_bn as MB
-    from multi_part_assembly_tpu_torch.utils import tracing
     x, mask, weight, bias, dy = _bn_inputs(cuda, (4, 20, 1000, 64), True)
     bn = MaskedBatchNorm(64).to(cuda).eval()
     with torch.no_grad():
@@ -1075,13 +1085,11 @@ def test_masked_bn_eval_mode(cuda):
         bn.running_mean.uniform_(-0.5, 0.5)
         bn.running_var.uniform_(0.5, 2.0)
     tracing.reset()
-    MB.reset_launches()
     xk = x.clone().requires_grad_(True)
     y = bn(xk, mask, relu=True)
     y.backward(dy)
     assert bn.route(x) == 'plain'
-    assert tracing.counters().get('bn.plain') == 1
-    assert not any(MB.LAUNCHES.values())
+    assert not any(_launches(BN_KEYS).values())
     xp = x.clone().requires_grad_(True)
     wp, bp = (t.clone().requires_grad_(True) for t in (weight, bias))
     _, factor, offset = MB.affine(wp, bp, bn.running_mean, bn.running_var,
@@ -1132,41 +1140,39 @@ def test_masked_bn_graph_replay_equals_eager(cuda):
 @pytest.mark.cuda
 def test_masked_bn_routes_on_card(cuda):
     """On the card the PointNet's five batch norms take the kernels in
-    train mode (`bn.fused`), launching the moments, the apply and the
-    backward once a layer, and the plain arithmetic in eval mode
-    (`bn.plain`, nothing launched); a lean layer stays plain; a strided x
+    train mode (route 'fused'), launching the moments, the apply and the
+    backward once a layer, and the plain arithmetic in eval mode (route
+    'plain', nothing launched); a lean layer stays plain; a strided x
     takes the kernels through a contiguous copy, the same output as the
     contiguous x; a channel count that is not a multiple of 8 raises."""
     from multi_part_assembly_tpu_torch.models.modules.encoders import \
         PointNet
     from multi_part_assembly_tpu_torch.models.modules.norm import \
         MaskedBatchNorm
-    from multi_part_assembly_tpu_torch.ops import masked_bn as MB
-    from multi_part_assembly_tpu_torch.utils import tracing
     net = PointNet(256, compute_dtype=torch.bfloat16).to(cuda)
     x = torch.randn(4, 20, 100, 3, device=cuda)
     mask = (torch.arange(20, device=cuda)[None] <
             torch.tensor([3, 20, 1, 7], device=cuda)[:, None]).float()
     tracing.reset()
-    MB.reset_launches()
-    net.train()(x, mask).sum().backward()
-    assert tracing.counters().get('bn.fused') == 5
-    assert MB.LAUNCHES == {'bn_moments': 5, 'bn_apply': 5, 'bn_backward': 5}
+    assert net.train().bn1.route(x) == 'fused'
+    net(x, mask).sum().backward()
+    five = {'bn_moments': 5, 'bn_apply': 5, 'bn_backward': 5}
+    assert _launches(BN_KEYS) == five
+    assert net.eval().bn1.route(x) == 'plain'
     with torch.no_grad():
-        net.eval()(x, mask)
-    assert tracing.counters().get('bn.fused') == 5
-    assert tracing.counters().get('bn.plain') == 5
-    assert MB.LAUNCHES == {'bn_moments': 5, 'bn_apply': 5, 'bn_backward': 5}
+        net(x, mask)
+    assert _launches(BN_KEYS) == five
     lean = MaskedBatchNorm(64, lean=True).to(cuda).train()
-    lean(torch.randn(2, 5, 64, device=cuda))
-    assert tracing.counters()['bn.plain'] == 6
-    assert MB.LAUNCHES['bn_moments'] == 5
+    rows64 = torch.randn(2, 5, 64, device=cuda)
+    assert lean.route(rows64) == 'plain'
+    lean(rows64)
+    assert _launches(BN_KEYS) == five
     rows = torch.randn(2, 5, 16, 64, device=cuda).to(torch.bfloat16)
     outs = [MaskedBatchNorm(16).to(cuda).train()(t, relu=True)
             for t in (rows.transpose(-1, -2), rows.transpose(-1, -2)
                       .contiguous())]
     assert torch.equal(outs[0], outs[1])
-    assert MB.LAUNCHES['bn_moments'] == 7
+    assert _launches(BN_KEYS)['bn_moments'] == 7
     odd = MaskedBatchNorm(12).to(cuda).train()
     with pytest.raises(ValueError, match='multiple of 8'):
         odd(torch.randn(2, 5, 12, device=cuda))

@@ -6,15 +6,16 @@ numpy inputs (bf16 and f32 clouds, ties made on purpose, a cloud whose
 points are all equal as a padded cloud's, a negative cotangent giving -0.0
 away from the ties); the PointNet's output and gradients bitwise the
 expression it pooled with before the kernels; the CPU's route (plain,
-nothing counted or launched); the refusals of the kernels' wrapper.  JAX is
+nothing launched); the refusals of the kernels' wrapper.  JAX is
 imported inside the tests that use it, so that the card can run the rest:
 
     python -m pytest tests/test_torch_max_pool.py --noconftest -q -m cuda
 
 On the card (`cuda`, skipping without one): the kernels bit for bit
 against the plain version on the card at the flagship's shapes (max, tie
-count and dx, signed zeros and a NaN column included), launch counts and
-the counter `pool.kernel`, a CUDA graph's replay equal to the eager calls.
+count and dx, signed zeros and a NaN column included), the launch
+counters `launch.pool_fwd` and `launch.pool_bwd`, a CUDA graph's replay
+equal to the eager calls.
 """
 
 import os
@@ -73,6 +74,12 @@ def _clouds(shape, seed=0, ties=True, padded=True, nan=False):
 def _bits(t):
     t = t.detach().float() if t.dtype == torch.bfloat16 else t.detach()
     return t.contiguous().view(torch.int32)
+
+
+def _pool_launches():
+    """(forward, backward) launches counted since `tracing.reset()`."""
+    c = tracing.counters()
+    return c.get('launch.pool_fwd', 0), c.get('launch.pool_bwd', 0)
 
 
 def _plain(x, g):
@@ -145,18 +152,15 @@ def test_pointnet_is_the_parents_pool_bitwise(monkeypatch):
 
 
 def test_cpu_takes_the_plain_route_and_counts_nothing():
-    """On the CPU the pool is the plain version: no `pool.kernel` counted,
-    no kernel launched; a type or width the kernels refuse pools all the
-    same (the refusals are the card's)."""
+    """On the CPU the pool is the plain version: no kernel launched (no
+    `launch.pool_*` counted); a type or width the kernels refuse pools all
+    the same (the refusals are the card's)."""
     net = TE.PointNet(16, compute_dtype=torch.bfloat16).train()
     tracing.reset()
-    MP.reset_launches()
     net(torch.randn(2, 4, 10, 3), torch.ones(2, 4)).sum().backward()
-    assert 'pool.kernel' not in tracing.counters()
-    assert not any(MP.LAUNCHES.values())
     for x in (torch.randn(2, 5, 12), torch.randn(2, 5, 16).half()):
         assert torch.equal(MP.max_pool(x), MP.max_pool_plain(x))
-    assert not any(MP.LAUNCHES.values())
+    assert not any(k.startswith('launch.pool_') for k in tracing.counters())
 
 
 @pytest.mark.parametrize('name,x', [
@@ -233,8 +237,8 @@ def test_kernels_match_plain_bitwise(cuda, case):
 @pytest.mark.cuda
 def test_routes_launches_and_counter_on_card(cuda):
     """The PointNet on the card pools on the kernels: one forward and one
-    backward launch and one `pool.kernel` a train-mode call with its
-    backward, one forward launch an eval-mode call; a strided x takes the
+    backward launch a train-mode call with its backward, one forward
+    launch an eval-mode call; a strided x takes the
     kernels through a contiguous copy, the same output; a type or width the
     kernels do not take raises."""
     net = TE.PointNet(256, compute_dtype=torch.bfloat16).to(cuda)
@@ -242,14 +246,11 @@ def test_routes_launches_and_counter_on_card(cuda):
     mask = (torch.arange(20, device=cuda)[None] <
             torch.tensor([3, 20, 1, 7], device=cuda)[:, None]).float()
     tracing.reset()
-    MP.reset_launches()
     net.train()(x, mask).sum().backward()
-    assert tracing.counters().get('pool.kernel') == 1
-    assert MP.LAUNCHES == {'pool_fwd': 1, 'pool_bwd': 1}
+    assert _pool_launches() == (1, 1)
     with torch.no_grad():
         net.eval()(x, mask)
-    assert tracing.counters().get('pool.kernel') == 2
-    assert MP.LAUNCHES == {'pool_fwd': 2, 'pool_bwd': 1}
+    assert _pool_launches() == (2, 1)
     rows = torch.randn(2, 5, 16, 64, device=cuda).to(torch.bfloat16)
     strided = rows.transpose(-1, -2)
     assert torch.equal(MP.max_pool(strided),
@@ -278,11 +279,11 @@ def test_graph_replay_equals_eager(cuda):
     with torch.cuda.stream(side):
         step()
     torch.cuda.current_stream().wait_stream(side)
-    MP.reset_launches()
+    tracing.reset()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         captured = step()
-    assert MP.LAUNCHES == {'pool_fwd': 1, 'pool_bwd': 1}
+    assert _pool_launches() == (1, 1)
     graph.replay()
     eager = step()
     torch.cuda.synchronize()

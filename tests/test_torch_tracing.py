@@ -1,7 +1,8 @@
 """The port's tracer (utils/tracing.py) on the CPU: spans kept only under a
 profiler (set-up and first mesh parses always), their names, threads,
 parents and (epoch, batch) ids, each span's `record_function` twin within
-0.05 ms of it, the counters, the record's bound; the region marks, which
+0.05 ms of it, the counters, the kernels' launcher (`launch.<key>` and
+its error, on a fake library), the record's bound; the region marks, which
 launch nothing on a CPU tensor (a step's numbers are bitwise those of
 unmarked code, and its autograd graph holds no mark node), nest in the
 step's order when their launches are recorded in place of the card's.
@@ -9,9 +10,12 @@ RGL-Net's graph layers (`relation`, `edge_mlp`, `gru`, `node_mlp`) and the
 counters `gnn.pair_rows`, `gru.steps`, `data.valid_pairs` on a small batch.
 The marks on the card: tests/test_torch_cuda.py."""
 
+import contextlib
 import os
 import sys
+import threading
 import time
+import types
 
 import numpy as np
 import pytest
@@ -168,6 +172,60 @@ def test_counters_add_and_reset():
     assert tracing.counters() == {'a': 5, 'b': 2}
     tracing.reset()
     assert tracing.counters() == {} and tracing.spans() == []
+
+
+def test_counters_lose_no_update_across_threads():
+    """Kernels launch from the loader's placement thread and the training
+    thread at once: 16 threads counting one counter, switching every
+    microsecond, lose no update."""
+    tracing.reset()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(
+            target=lambda: [tracing.count('launch.stress')
+                            for _ in range(2000)]) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert tracing.counters().get('launch.stress') == 16 * 2000
+
+
+def test_launcher_counts_and_raises_naming_the_entry_point(monkeypatch):
+    """ops/cuda_build.py `launch` on a fake library, device guard and
+    stream: the entry point gets its arguments and the current stream
+    inside the device's guard; a zero return counts `launch.<key>` once, a
+    non-zero one raises naming the entry point and counts nothing."""
+    from multi_part_assembly_tpu_torch.ops import cuda_build
+    calls, guards, rcs = [], [], [0, 700]
+
+    class Lib:
+        def mpa_fake(self, *args):
+            calls.append((args, tuple(guards)))
+            return rcs.pop(0)
+
+    @contextlib.contextmanager
+    def guard(device):
+        guards.append(device)
+        yield
+        guards.pop()
+    lib = Lib()
+    monkeypatch.setattr(cuda_build, 'load_library', lambda: lib)
+    monkeypatch.setattr(torch.cuda, 'device', guard)
+    monkeypatch.setattr(torch.cuda, 'current_stream',
+                        lambda: types.SimpleNamespace(cuda_stream=77))
+    tracing.reset()
+    cuda_build.launch('mpa_fake', 'fake', 'cuda:1', 3, 4)
+    assert calls == [((3, 4, 77), ('cuda:1', ))] and not guards
+    assert tracing.counters().get('launch.fake') == 1
+    with pytest.raises(RuntimeError, match='^mpa_fake: CUDA error 700$'):
+        cuda_build.launch('mpa_fake', 'fake', 'cuda:1', 5)
+    assert calls[1] == ((5, 77), ('cuda:1', )) and not guards
+    assert tracing.counters().get('launch.fake') == 1
 
 
 def test_record_keeps_the_last_max_spans():
