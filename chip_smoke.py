@@ -46,7 +46,13 @@ Phases, each printing its own line(s); any failure exits non-zero:
      against scipy's optimum (objective within 1e-6 relative), on a
      semantic batch's block-masked costs (M = S x B = 160 and M = B = 32,
      n = 20), random and tie-heavy costs at n = 20, 2, 3 and 32; kernel and
-     plain times by CUDA events at the main path's shapes.  Then the masked
+     plain times by CUDA events at the main path's shapes.  Then L2
+     (phase_lap_cost, csrc/matching.cu, the block-masked LAP cost) against
+     the plain masked cost on the five subsamples of a semantic batch (B =
+     32, n = 100): in-group entries within the card tests' tolerance, the
+     rest exactly, two launches bitwise, L1's assignments on both costs
+     equal but on a near-tie; its time beside its bound (the in-group point
+     pairs) and the plain version's.  Then the masked
      batch norm's kernels (phase_masked_bn, csrc/masked_bn.cu) at the
      flagship PointNet's five layers against the plain version: the
      moments within 1e-6, the apply bit for bit, dx within 2^-8, d(weight)
@@ -173,7 +179,7 @@ Phases, each printing its own line(s); any failure exits non-zero:
      wrapper launches exactly the traced step bodies' (two warm-up steps,
      undone, and the capture) and the sampler's once a batch; the kernels
      of a replayed step by torch.profiler (B1/B3's kernel 2 x S x T, B2
-     and B4 S x T, L1 S x T, B8 4 x S x T on the unfused route); eager
+     and B4 S x T, L1 and L2 S x T, B8 4 x S x T on the unfused route); eager
      against graphed step time, device idle share, peak memory and capture
      seconds, beside the card's name and power limit.  The first groups
      place their batches on the training thread, so that the sampler
@@ -258,7 +264,8 @@ MAX_POOL_CU = 'multi_part_assembly_tpu_torch/csrc/max_pool.cu'
 TPU = 'multi_part_assembly_tpu/ops/chamfer.py'
 TPU_DS = 'multi_part_assembly_tpu/datasets/device_sampler.py'
 # (name, launch counter, TPU computation it replaces, source): B1-B8 replace
-# Pallas kernels; L1 (lap) the XLA solve `_solve_lap_single`
+# Pallas kernels; L1 (lap) the XLA solve `_solve_lap_single`; L2 (lap_cost)
+# the XLA pair chamfer cost and its block mask
 KERNELS = [
     ('chamfer_pair[parts]', 'nn_parts', f'{TPU}:483', CHAMFER_CU),
     ('chamfer_pair[diag]', 'nn_diag', f'{TPU}:556', CHAMFER_CU),
@@ -269,6 +276,9 @@ KERNELS = [
     ('nn_parts[off]', 'nn_off', f'{TPU}:284', CHAMFER_CU),
     ('nn_dir', 'nn_dir', f'{TPU}:110', CHAMFER_CU),
     ('lap', 'lap', 'multi_part_assembly_tpu/ops/matching.py:25', MATCHING_CU),
+    ('lap_cost', 'lap_cost', 'none (XLA: the JAX package\'s '
+     '_pair_chamfer_cost, multi_part_assembly_tpu/ops/matching.py:111)',
+     MATCHING_CU),
     ('masked_bn[fwd]', 'bn_apply', 'none (XLA fuses the JAX package\'s '
      'models/modules/norm.py)', MASKED_BN_CU),
     ('masked_bn[bwd]', 'bn_backward', 'none (XLA fuses the JAX package\'s '
@@ -290,7 +300,7 @@ SAMPLER_KEYS = ('sample_dense', 'sample_chunked')
 BN_KEYS = ('bn_moments', 'bn_apply', 'bn_backward')
 POOL_KEYS = ('pool_fwd', 'pool_bwd')
 LAUNCH_KEYS = FUSED_KEYS + ('nn_off', 'nn_dir') + SAMPLER_KEYS + \
-    ('lap', ) + BN_KEYS + POOL_KEYS
+    ('lap', 'lap_cost') + BN_KEYS + POOL_KEYS
 # face counts of the ragged soup set: sub-chunk, exactly one chunk, many
 RAGGED_FACES = [37, 512, 3000, 20000]
 # B2/B4 add a row's terms in a fixed order, the plain version's on the CPU,
@@ -1772,8 +1782,8 @@ def _train_run(index, data_dir, tmp):
     # validation and never B1-B4; no geometric run launches B7 or L1
     train_keys = ('nn_off', ) if mode == 'off' else FUSED_KEYS
     val_key = 'nn_off' if mode == 'off' else 'nn_diag'
-    never = FUSED_KEYS + ('nn_dir', 'lap') if mode == 'off' else \
-        ('nn_off', 'nn_dir', 'lap')
+    never = FUSED_KEYS + ('nn_dir', 'lap', 'lap_cost') if mode == 'off' \
+        else ('nn_off', 'nn_dir', 'lap', 'lap_cost')
     for key in train_keys:
         if launches['train'][key] <= 0:
             raise AssertionError(f'{tag}: {key} never launched in training')
@@ -1985,7 +1995,7 @@ def phase_resume(data_dir, tmp):
     for key in FUSED_KEYS + ('sample_dense', ):
         if launches[key] <= 0:
             raise AssertionError(f'resume: {key} never launched')
-    for key in ('nn_off', 'nn_dir', 'sample_chunked', 'lap'):
+    for key in ('nn_off', 'nn_dir', 'sample_chunked', 'lap', 'lap_cost'):
         if launches[key]:
             raise AssertionError(f'resume: {key} launched {launches[key]} '
                                  'times')
@@ -2271,7 +2281,7 @@ def _epoch_run(tag, path, T, opts, data_dir, run_dir, batch=B, ranges=(),
     val = launches['val']
     if val['nn_diag'] <= 0 or val['sample_dense'] <= 0 or any(
             val[k] for k in ('bwd_parts', 'bwd_diag', 'nn_off', 'nn_dir',
-                             'sample_chunked', 'lap')):
+                             'sample_chunked', 'lap', 'lap_cost')):
         raise AssertionError(f'{tag}: validation launches {val}')
     profile = _profile_steps(trainer, ranges=ranges) if ranges else None
     if ranges:
@@ -2383,6 +2393,12 @@ SEM_FAMILIES = {
 LAP_SHAPES = [(32, 20), (160, 20), (64, 2), (64, 3), (64, 32)]
 LAP_RTOL = 1e-6  # objective against scipy's, in f64 (scipy may tie-break
 #                  to another optimum)
+# L2 against the plain f32 cost: tests/test_torch_lap_cost.py's tolerance
+# (relative, and absolute in units of the largest squared norm of a point);
+# L1 on the two costs may differ only where the objectives differ by less
+# than LAP_COST_TIE
+LAP_COST_RTOL, LAP_COST_ATOL = 1e-6, 2e-6
+LAP_COST_TIE = 1e-4
 
 
 def _make_partnet_set(root):
@@ -2415,10 +2431,11 @@ def _partnet_batch(data_dir, indices):
     return t
 
 
-def _semantic_costs(data_dir):
-    """The block-masked LAP costs of a semantic batch, built as match_parts
-    builds them: 32 train shapes, predicted poses the GT's jittered, S = 5
-    subsamples -> [S * 32, 20, 20] on the card."""
+def _semantic_samples(data_dir):
+    """A semantic batch's LAP-cost inputs, moved as match_parts moves them:
+    32 train shapes, predicted poses the GT's jittered, S = 5 subsamples
+    of 100 points -> ([(a, b)] * S, each [32, 20, 100, 3] f32 on the card,
+    match_ids [32, 20] int32)."""
     from multi_part_assembly_tpu_torch.utils.transforms import transform_pc
     batch = {k: v.cuda() for k, v in _partnet_batch(
         data_dir, range(B)).items()}
@@ -2429,15 +2446,23 @@ def _semantic_costs(data_dir):
         dim=-1)
     trans = batch['part_trans'] + 0.05 * v * torch.randn(
         batch['part_trans'].shape, generator=g, device='cuda')
-    costs = []
+    samples = []
     for _ in range(5):
         idx = torch.randperm(N, generator=g, device='cuda')[:100]
         pts = batch['part_pcs'][:, :, idx]
-        costs.append(LAP.lap_cost(LAP._pair_chamfer_cost(
-            transform_pc(trans, quat, pts, rot_type='quat'),
+        samples.append((
+            transform_pc(trans, quat, pts, rot_type='quat').contiguous(),
             transform_pc(batch['part_trans'], batch['part_quat'], pts,
-                         rot_type='quat')), batch['match_ids']))
-    return torch.cat(costs).contiguous()
+                         rot_type='quat').contiguous()))
+    return samples, batch['match_ids'].to(torch.int32).contiguous()
+
+
+def _semantic_costs(data_dir):
+    """The block-masked LAP costs of `_semantic_samples`, by the plain
+    functions: [S * 32, 20, 20] on the card."""
+    samples, ids = _semantic_samples(data_dir)
+    return torch.cat([LAP.lap_cost(LAP._pair_chamfer_cost(a, b), ids)
+                      for a, b in samples]).contiguous()
 
 
 def _objective(cost, perm):
@@ -2491,6 +2516,62 @@ def phase_lap(data_dir):
         if M_ == B:
             out = (0.0, k_ms, p_ms, *bound)
     return out
+
+
+def phase_lap_cost(data_dir):
+    """L2 against the plain masked cost on the card at the main path's
+    shape (S = 5 samples of a semantic batch of 32, n = 100): in-group
+    entries within the card tests' tolerance (tests/test_torch_lap_cost.py),
+    every other entry exactly the plain one, a second launch bitwise the
+    first, and L1's assignments on it the plain cost's, but on a near-tie
+    (objectives on the plain cost within LAP_COST_TIE); then its time beside
+    its bound and the plain version's.  Returns the kernels line's entry
+    (one launch, one sample)."""
+    samples, ids = _semantic_samples(data_dir)
+    inb = (ids[:, :, None] == ids[:, None, :]) & (ids[:, :, None] > 0)
+    err = 0.0
+    for s, (a, b) in enumerate(samples):
+        k = LAP.lap_cost_cuda(a, b, ids)
+        again = LAP.lap_cost_cuda(a, b, ids)
+        p = LAP.lap_cost(LAP._pair_chamfer_cost(a, b), ids)
+        r2 = float(torch.stack([a, b]).square().sum(-1).max())
+        d = (k - p)[inb].abs()
+        over = int((d > LAP_COST_RTOL * p[inb].abs()
+                    + LAP_COST_ATOL * r2).sum())
+        err = max(err, float(d.max()))
+        perm_k, perm_p = LAP.solve_lap(k), LAP.solve_lap(p)
+        differ = (perm_k != perm_p).any(-1).cpu()
+        gap = (_objective(p, perm_k) - _objective(p, perm_p)).abs()
+        tie = float(gap[differ].max()) if differ.any() else 0.0
+        print(f'lap_cost: sample {s}: max|cost kernel - cost plain| over '
+              f'{int(inb.sum())} in-group entries {float(d.max()):.3e}, '
+              f'{over} over the tolerance ({LAP_COST_RTOL:g} relative + '
+              f'{LAP_COST_ATOL:g} x {r2:.3f}; 0 required); other entries '
+              f'equal {torch.equal(k[~inb], p[~inb])}; second launch '
+              f'bitwise {torch.equal(k, again)}; L1\'s assignments differ '
+              f'on {int(differ.sum())} of {B} shapes, objective gap there '
+              f'{tie:.2e} (near-tie limit {LAP_COST_TIE:g})', flush=True)
+        if over or tie > LAP_COST_TIE or not torch.equal(k, again) or \
+                not torch.equal(k[~inb], p[~inb]):
+            raise AssertionError(f'lap_cost sample {s}: the kernel '
+                                 'disagrees with the plain cost')
+    a, b = samples[0]
+    k_ms = _cuda_ms(lambda: LAP.lap_cost_cuda(a, b, ids), 50)
+    p_ms = _cuda_ms(lambda: LAP.lap_cost(LAP._pair_chamfer_cost(a, b), ids),
+                    5)
+    # the in-group point pairs at PAIR_OPS operations (both directions'
+    # minima from one distance); bytes: both clouds and the ids read once,
+    # the cost written
+    n = a.shape[2]
+    pairs = int(inb.sum()) * n * n
+    bound = _bound(ops=PAIR_OPS * pairs,
+                   nbytes=4 * (2 * a.numel() + ids.numel() + B * P * P))
+    print(f'lap_cost: [{B}, {P}, {n}] one sample: kernel {k_ms:.4f} ms, '
+          f'plain {p_ms:.4f} ms ({p_ms / k_ms:.0f}x), bound {bound[0]:.5f} ms '
+          f'({bound[1]}; {pairs:.4g} in-group point pairs of '
+          f'{B * P * P * n * n:.4g}), share {bound[0] / k_ms:.4f}',
+          flush=True)
+    return (err, k_ms, p_ms, *bound)
 
 
 def _noise_and_idx(b, S, seed):
@@ -2584,8 +2665,8 @@ def phase_semantic_slice(data_dir):
 
 
 def _profile_semantic(trainer, steps=2):
-    """_profile_steps's line plus the device time a step of L1 and of the
-    LAP cost (`pair_chamfer_cost`, a profiler range), from one run."""
+    """_profile_steps's line plus the device time a step of L1 and of L2
+    (the LAP cost), from one run."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     trainer.train_loader.set_epoch(7)
@@ -2603,19 +2684,14 @@ def _profile_semantic(trainer, steps=2):
     if not kernels:
         return 'the profiler recorded no device event: not measured'
     busy = sum(ev.time_range.elapsed_us() for ev in kernels) / 1e3 / steps
-    lap_ms = sum(ev.time_range.elapsed_us() for ev in kernels
-                 if 'lap_kernel' in ev.name) / 1e3 / steps
-    cost_ms = 0.0
-    for ev in prof.key_averages():
-        if ev.key == 'pair_chamfer_cost':
-            us = getattr(ev, 'device_time_total', None)
-            cost_ms = (us if us is not None else
-                       getattr(ev, 'cuda_time_total', 0.0)) / 1e3 / steps
+    lap_ms, cost_ms = (sum(ev.time_range.elapsed_us() for ev in kernels
+                           if name in ev.name) / 1e3 / steps
+                       for name in ('lap_kernel', 'lap_cost_kernel'))
     step_ms = 1e3 * wall / steps
     return (f'{len(kernels) / steps:.0f} device kernels a step, {busy:.2f} ms '
             f'of device time in {step_ms:.2f} ms a step (device idle '
             f'{100 * (1 - busy / step_ms):.1f}%); L1 {lap_ms:.4f} ms, '
-            f'pair_chamfer_cost {cost_ms:.4f} ms of device time a step')
+            f'L2 {cost_ms:.4f} ms of device time a step')
 
 
 def _semantic_run(tag, cfg_path, opts, data_dir, run_dir, S, T, epochs):
@@ -2689,7 +2765,8 @@ def _semantic_run(tag, cfg_path, opts, data_dir, run_dir, S, T, epochs):
         S, T, 'auto', True, 'identity' in cfg_path).items()})
     nv = len(trainer.val_loader)
     val_expected = {k: 0 for k in _loss_launches(_launches())}
-    val_expected.update(nn_parts=S * nv, nn_diag=2 * S * nv, lap=S * nv)
+    val_expected.update(nn_parts=S * nv, nn_diag=2 * S * nv, lap=S * nv,
+                        lap_cost=S * nv)
     print(f'{tag}: kernel launches in training {launches["train"]} '
           f'(expected S x T x traced step bodies = {S} x {T} x {traced}), '
           f'in validation {launches["val"]} (expected {val_expected})',
@@ -2932,11 +3009,12 @@ GRAPH_RUNS = [
 ]
 # kernel names a replayed step's profile counts: B1 and B3 are one kernel
 # (`chamfer_pair_kernel<2>`), B2 and B4 two, B8 the one-direction pair
-# kernel, L1 the LAP kernel
+# kernel, L1 the LAP kernel, L2 the LAP cost's
 REPLAY_KERNELS = {'B1+B3': 'chamfer_pair_kernel<2>',
                   'B2': 'chamfer_grad_kernel<false>',
                   'B4': 'chamfer_grad_kernel<true>',
-                  'B8': 'chamfer_pair_kernel<1>', 'L1': 'lap_kernel'}
+                  'B8': 'chamfer_pair_kernel<1>', 'L1': 'lap_kernel',
+                  'L2': 'lap_cost_kernel'}
 
 
 def _replay_expected(S, T, mode, semantic, identity=False):
@@ -2946,7 +3024,7 @@ def _replay_expected(S, T, mode, semantic, identity=False):
     fused = mode != 'off'
     return {'B1+B3': 2 * n if fused else 0, 'B2': grad if fused else 0,
             'B4': grad if fused else 0, 'B8': 0 if fused else 4 * n,
-            'L1': n if semantic else 0}
+            'L1': n if semantic else 0, 'L2': n if semantic else 0}
 
 
 def _step_expected(S, T, mode, semantic, identity=False):
@@ -2957,7 +3035,7 @@ def _step_expected(S, T, mode, semantic, identity=False):
     return {'nn_parts': n if fused else 0, 'nn_diag': n if fused else 0,
             'bwd_parts': grad, 'bwd_diag': grad,
             'nn_off': 0 if fused else 4 * n, 'nn_dir': 0,
-            'lap': n if semantic else 0}
+            'lap': n if semantic else 0, 'lap_cost': n if semantic else 0}
 
 
 def _host_batches(trainer, n, placed=False):
@@ -3731,7 +3809,7 @@ def phase_ddp(data_dir, tmp):
     n_steps = tr[0]['shapes'] // DDP_WORLD // (B // DDP_WORLD)
     expected = {'nn_parts': n, 'nn_diag': n, 'bwd_parts': n, 'bwd_diag': n,
                 'sample_dense': n, 'sample_chunked': 0, 'nn_off': 0,
-                'nn_dir': 0, 'lap': 0}
+                'nn_dir': 0, 'lap': 0, 'lap_cost': 0}
     for r, t in enumerate(tr):
         start, step, differ, count = t['resume']
         print(f'ddp[trainer] rank {r}: {t["layout"]} tables; {n} train '
@@ -3751,7 +3829,8 @@ def phase_ddp(data_dir, tmp):
         val = t['launches']['val']
         if val['nn_diag'] <= 0 or val['sample_dense'] <= 0 or any(
                 val[k] for k in ('bwd_parts', 'bwd_diag', 'nn_off',
-                                 'nn_dir', 'sample_chunked', 'lap')):
+                                 'nn_dir', 'sample_chunked', 'lap',
+                                 'lap_cost')):
             raise AssertionError(f'ddp[trainer]: rank {r} validation '
                                  f'launches {val}')
         if (start, step) != (1, n) or differ:
@@ -3825,6 +3904,7 @@ def main():
         results = _timed(phase_kernels)
         results.update(_timed(phase_sampler, data_dir, tmp))
         results['lap'] = _timed(phase_lap, partnet_dir)
+        results['lap_cost'] = _timed(phase_lap_cost, partnet_dir)
         results.update(_timed(phase_masked_bn))
         results.update(_timed(phase_max_pool))
         _timed(phase_slice)

@@ -292,8 +292,9 @@ class DataLoader:
     `data.collate` on the collate thread, `data.place` on the transform
     thread, `data.wait` for the consumer's hand-over, and
     `data.epoch_start` from the iterator's start to its first batch.
-    Counters: `data.valid_parts` and `data.valid_pairs` (the sum of each
-    shape's squared part count) at collate, `data.batches` and
+    Counters: `data.valid_parts`, `data.valid_pairs` (the sum of each
+    shape's squared part count) and, on semantic data, `data.match_pairs`
+    (the sum of each group's squared size) at collate, `data.batches` and
     `data.starved` (a hand-over that found no batch ready) at the
     hand-over."""
 
@@ -361,6 +362,9 @@ class DataLoader:
                         tensors = _to_tensors(batch, pin)
                     tracing.count('data.valid_parts', _valid_parts(batch))
                     tracing.count('data.valid_pairs', _valid_pairs(batch))
+                    if 'match_ids' in batch:
+                        tracing.count('data.match_pairs',
+                                      _match_pairs(batch['match_ids']))
                     if not put(q, (n, tensors)):
                         return
             except Exception as e:  # re-raised in the consumer
@@ -452,6 +456,14 @@ def _valid_pairs(batch):
     squared part count, the rows of a pair MLP over valid parts."""
     counts = _part_counts(batch)
     return 0 if counts is None else int(np.sum(counts ** 2))
+
+
+def _match_pairs(match_ids):
+    """The in-group part pairs of a batch's `match_ids` [B, P]: over its
+    shapes, the sum of each group's squared size (a group: equal nonzero
+    ids), the entries of the LAP cost that kernel L2 computes."""
+    ids = np.asarray(match_ids).astype(np.int64)
+    return sum(int(np.sum(np.bincount(row[row > 0]) ** 2)) for row in ids)
 
 
 def unpack_parts(part_pcs_packed, pack_index, part_valids):

@@ -69,6 +69,8 @@ def _bind(lib):
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
     lib.mpa_lap.restype = i
     lib.mpa_lap.argtypes = [p, p, i, i, p]
+    lib.mpa_lap_cost.restype = i
+    lib.mpa_lap_cost.argtypes = [p] * 4 + [i, i, i, p]
     q = ctypes.c_longlong
     lib.mpa_bn_parts.restype = i
     lib.mpa_bn_parts.argtypes = [q, i]

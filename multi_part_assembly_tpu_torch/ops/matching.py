@@ -16,12 +16,19 @@ constant, so that it splits into the per-group problems.
     It does the arithmetic in JAX's order and breaks ties towards the first
     minimum, as `jnp.argmin` does: on the same cost it gives JAX's
     assignment bit for bit, and so does the kernel.
-  - `match_parts`: the matching itself (JAX :149-217), under no_grad.
+  - `lap_cost_cuda(pts1, pts2, match_ids)`: kernel L2 (`mpa_lap_cost`,
+    csrc/matching.cu), the block-masked cost `lap_cost(_pair_chamfer_cost(
+    pts1, pts2), match_ids)` in one launch that visits only the in-group
+    part pairs, with no [B, P, P, n, n] intermediate; n <= 256.
+  - `match_parts`: the matching itself (JAX :149-217), under no_grad.  Its
+    cost takes L2 for a CUDA tensor and the plain functions for a CPU
+    tensor; any other device raises.
 
 The JAX solve is XLA while-loops, not a Pallas kernel.  Eager PyTorch runs
 the plain version as thousands of small launches a call (about 6,000 at
 n = 20, whatever the number of problems), which is why the card has a
-kernel for it.  Each launch of L1 counts `launch.lap`.
+kernel for it.  Each launch of L1 counts `launch.lap`, each of L2
+`launch.lap_cost`.
 """
 
 import numpy as np
@@ -32,11 +39,14 @@ from ..utils.transforms import transform_pc
 from .cuda_build import launch, require
 
 __all__ = ['solve_lap', 'solve_lap_plain', 'solve_lap_cuda',
-           'hungarian_scipy', 'match_parts', 'lap_cost', 'MAX_LAP_N']
+           'hungarian_scipy', 'match_parts', 'lap_cost', 'lap_cost_cuda',
+           'MAX_LAP_N', 'MAX_LAP_COST_N']
 
 _BIG = 1e9
 # one warp a problem, one lane a column
 MAX_LAP_N = 32
+# L2: a thread a point in each of a block's two halves of at most 256
+MAX_LAP_COST_N = 256
 
 
 def solve_lap_plain(cost):
@@ -149,9 +159,10 @@ def _pair_chamfer_cost(pts1, pts2):
 
     In f32: x2 + y2 - 2 xy with the cross term a plain matmul (TF32 off,
     as the trainer sets it), clamped at 0.  JAX packs bf16 splits for the
-    TPU's matrix unit to reach about 2^-24; f32 is that here.  The
-    [B, P, P, n, n] intermediate is 512 MB at B = 32, P = 20, n = 100, which
-    the card holds without trouble."""
+    TPU's matrix unit to reach about 2^-24; f32 is that here.  The CPU
+    path and the tests' yardstick: a CUDA tensor takes kernel L2
+    (`lap_cost_cuda`), which never builds the [B, P, P, n, n]
+    intermediate."""
     x2 = (pts1 * pts1).sum(-1)  # [B, P, n]
     y2 = (pts2 * pts2).sum(-1)
     xy = torch.matmul(pts1[:, :, None], pts2[:, None].transpose(-1, -2))
@@ -174,6 +185,39 @@ def lap_cost(cost, match_ids):
     out = torch.where(in_block, cost, torch.full_like(cost, _BIG))
     return torch.where(diag & ~grouped[:, :, None], torch.zeros_like(out),
                        out)
+
+
+def lap_cost_cuda(pts1, pts2, match_ids):
+    """Kernel L2: `lap_cost(_pair_chamfer_cost(pts1, pts2), match_ids)` for
+    pts1, pts2 `[B, P, n, 3]` f32 and match_ids `[B, P]` int32 on one CUDA
+    device, contiguous, 1 <= n <= 256 -> `[B, P, P]` f32.  Its distances
+    are direct differences, so its in-group entries differ from the plain
+    f32 path's expanded form by that form's rounding; the rest are the same
+    constants."""
+    B, P, n, _ = pts1.shape
+    require(pts1, 'pts1', torch.float32, (B, P, n, 3), 'cuda')
+    require(pts2, 'pts2', torch.float32, (B, P, n, 3), pts1.device)
+    require(match_ids, 'match_ids', torch.int32, (B, P), pts1.device)
+    if not 1 <= n <= MAX_LAP_COST_N:
+        raise ValueError(f'lap_cost on CUDA takes 1 <= n <= '
+                         f'{MAX_LAP_COST_N} points a part, got n = {n}')
+    out = torch.empty((B, P, P), dtype=torch.float32, device=pts1.device)
+    if B * P == 0:
+        return out
+    launch('mpa_lap_cost', 'lap_cost', pts1.device, pts1.data_ptr(),
+           pts2.data_ptr(), match_ids.data_ptr(), out.data_ptr(), B, P, n)
+    return out
+
+
+def _masked_cost(pts1, pts2, match_ids):
+    """The LAP's block-masked cost: L2 on a CUDA tensor, the plain
+    functions on a CPU tensor; any other device raises."""
+    if pts1.device.type == 'cpu':
+        return lap_cost(_pair_chamfer_cost(pts1, pts2), match_ids)
+    if pts1.device.type != 'cuda':
+        raise ValueError(f'no LAP cost kernel for device {pts1.device}')
+    return lap_cost_cuda(pts1.contiguous(), pts2.contiguous(),
+                         match_ids.to(torch.int32).contiguous())
 
 
 @torch.no_grad()
@@ -203,10 +247,7 @@ def match_parts(part_pcs, pred_trans, pred_rot, gt_trans, gt_rot, match_ids,
         pts_pred = transform_pc(pred_trans, pred_rot, pts,
                                 rot_type=rot_type)
         pts_gt = transform_pc(gt_trans, gt_rot, pts, rot_type=rot_type)
-        # a profiler range, so that an eager trace can give it its time
-        with torch.profiler.record_function('pair_chamfer_cost'):
-            cost = _pair_chamfer_cost(pts_pred, pts_gt)
-        cost = lap_cost(cost, match_ids)
+        cost = _masked_cost(pts_pred, pts_gt, match_ids)
     perm = solve_lap(cost).long()  # [B, P]
     new_trans = gt_trans.gather(1, perm[..., None].expand(B, P, 3))
     idx = perm.reshape(B, P, *([1] * (gt_rot.dim() - 2)))

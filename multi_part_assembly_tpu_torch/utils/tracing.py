@@ -24,13 +24,14 @@ Names in use (docs/torch_port.md, "Tracing"): spans `data.collate`,
 (`train.flush.fetch`, `train.flush.write`), `setup.data`,
 `setup.tables`, `setup.capture`, `setup.build`, `ckpt.write`; counters
 `data.batches`, `data.starved`, `data.valid_parts`, `data.valid_pairs`,
-`step.slots`, `gnn.pair_rows`, `gru.steps`, and `launch.<key>`, one a
-hand-written kernel's launch (ops/cuda_build.py `launch`; `nn_parts`,
-`nn_diag`, `bwd_parts`, `bwd_diag`, `nn_off`, `nn_dir`, `sample_dense`,
-`sample_chunked`, `lap`, `bn_moments`, `bn_apply`, `bn_backward`,
-`pool_fwd`, `pool_bwd`), counted where the Python runs: in a traced step
-body, not in a graph's replay; regions `augment`, `encoder`, `masked_bn`,
-`max_pool`, `transformer`, `pose_head`, `loss`, `matching`, `lap_cost`,
+`data.match_pairs`, `step.slots`, `gnn.pair_rows`, `gru.steps`, and
+`launch.<key>`, one a hand-written kernel's launch (ops/cuda_build.py
+`launch`; `nn_parts`, `nn_diag`, `bwd_parts`, `bwd_diag`, `nn_off`,
+`nn_dir`, `sample_dense`, `sample_chunked`, `lap`, `lap_cost`,
+`bn_moments`, `bn_apply`, `bn_backward`, `pool_fwd`, `pool_bwd`),
+counted where the Python runs: in a traced step body, not in a graph's
+replay; regions `augment`, `encoder`, `masked_bn`, `max_pool`,
+`transformer`, `pose_head`, `loss`, `matching`, `lap_cost`,
 `optimizer`, and the graph families' `relation`, `edge_mlp`, `gru`,
 `node_mlp`.
 

@@ -205,7 +205,9 @@ def summarize(events, top=30, host=False, program_spans=(), steps=1,
     program's), 'valid_share' (`data.valid_parts` over `step.slots`, None
     without them), 'valid_pair_share' (`data.valid_pairs` over
     `step.slots` x `max_num_part`, the share of a pair MLP's rows that
-    pair two valid parts; None without them)}."""
+    pair two valid parts; None without them), 'match_pair_share'
+    (`data.match_pairs` over the same, the share of the LAP cost's entries
+    that lie inside a group; None without them)}."""
     dev = [e for e in events if e.get('cat', '').lower() in DEVICE_CATS]
     dur, cnt = collections.Counter(), collections.Counter()
     for e in dev:
@@ -235,9 +237,11 @@ def summarize(events, top=30, host=False, program_spans=(), steps=1,
     slots = out['counters'].get('step.slots', 0)
     out['valid_share'] = out['counters'].get('data.valid_parts', 0) / \
         slots if slots else None
-    pairs = out['counters'].get('data.valid_pairs')
-    out['valid_pair_share'] = pairs / (slots * max_num_part) \
-        if slots and max_num_part and pairs is not None else None
+    for key, name in (('valid_pair_share', 'data.valid_pairs'),
+                      ('match_pair_share', 'data.match_pairs')):
+        pairs = out['counters'].get(name)
+        out[key] = pairs / (slots * max_num_part) \
+            if slots and max_num_part and pairs is not None else None
     return out
 
 
@@ -272,6 +276,9 @@ def report(s):
     if s.get('valid_pair_share') is not None:
         print(f'valid share of the part pairs (data.valid_pairs / '
               f'(step.slots x max_num_part)): {s["valid_pair_share"]:.4f}')
+    if s.get('match_pair_share') is not None:
+        print(f'in-group share of the part pairs (data.match_pairs / '
+              f'(step.slots x max_num_part)): {s["match_pair_share"]:.4f}')
     if s['gaps']:
         print(f'{"gap_ms":>10} {"spans%":>6}  longest device idle gaps: the '
               f'training thread\'s span; the other threads\'')

@@ -15,6 +15,7 @@ The same numpy inputs from a seed go through both.  Tolerances:
 """
 
 import itertools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -183,3 +184,144 @@ def test_hungarian_scipy_matches_jax_copy():
     cost = _cost('random', 6, seed=9)
     np.testing.assert_array_equal(TM.hungarian_scipy(cost),
                                   JM.hungarian_scipy(cost))
+
+
+@pytest.mark.parametrize('rot_type', ['quat', 'rmat'])
+def test_match_parts_on_the_cpu_takes_the_plain_cost(rot_type, monkeypatch):
+    """On CPU tensors match_parts builds its cost with the plain functions
+    (once), never with kernel L2, counts no launch, and gives JAX's
+    permuted poses."""
+    pcs, poses, match_ids = _match_inputs(rot_type, seed=8)
+    key = jax.random.PRNGKey(3)
+    (pt, pr), (gt, gr) = poses['pred'], poses['gt']
+    ref = JM.match_parts(
+        jnp.asarray(pcs), jnp.asarray(pt), jnp.asarray(pr), jnp.asarray(gt),
+        jnp.asarray(gr), jnp.asarray(match_ids), key, rot_type)
+    idx = np.asarray(jax.random.permutation(key, pcs.shape[2])[:100])
+    plain = TM._pair_chamfer_cost
+    calls = []
+
+    def spy(*args):
+        calls.append(args[0].device)
+        return plain(*args)
+
+    def refuse(*args):
+        raise AssertionError('kernel L2 called on CPU tensors')
+    monkeypatch.setattr(TM, '_pair_chamfer_cost', spy)
+    monkeypatch.setattr(TM, 'lap_cost_cuda', refuse)
+    tracing.reset()
+    out = TM.match_parts(
+        torch.tensor(pcs), torch.tensor(pt), torch.tensor(pr),
+        torch.tensor(gt), torch.tensor(gr), torch.tensor(match_ids),
+        rot_type, sample_idx=torch.tensor(idx))
+    assert calls == [torch.device('cpu')]
+    assert not any(k.startswith('launch.') for k in tracing.counters())
+    for ours, theirs in zip(out, ref):
+        np.testing.assert_array_equal(ours.numpy(), np.asarray(theirs))
+
+
+def test_masked_cost_routes_by_device():
+    """The plain masked cost on the CPU, bit for bit; another device than
+    the CPU or CUDA raises."""
+    rng = np.random.default_rng(12)
+    a = torch.tensor(rng.uniform(-0.5, 0.5, (2, 6, 30, 3)).astype(np.float32))
+    b = a + 0.01
+    ids = torch.tensor([[1, 1, 0, 2, 2, 0], [3, 0, 3, 3, 0, 0]],
+                       dtype=torch.float32)
+    assert torch.equal(TM._masked_cost(a, b, ids),
+                       TM.lap_cost(TM._pair_chamfer_cost(a, b), ids))
+    with pytest.raises(ValueError, match='device'):
+        TM._masked_cost(a.to('meta'), b.to('meta'), ids.to('meta'))
+
+
+def test_lap_cost_cuda_hands_the_kernel_its_arguments(monkeypatch):
+    """Kernel L2's wrapper, with the tensor checks and the launcher faked:
+    each tensor checked, one launch of `mpa_lap_cost` counted as
+    `lap_cost` with the pointers and B, P, n; n outside 1..256 raises
+    before it, an empty batch launches nothing."""
+    checked, launched = [], []
+    monkeypatch.setattr(TM, 'require', lambda t, name, dtype, shape, dev:
+                        checked.append((name, dtype, tuple(shape))))
+    monkeypatch.setattr(TM, 'launch', lambda *args: launched.append(args))
+    a = torch.zeros((3, 4, 37, 3))
+    b = torch.ones((3, 4, 37, 3))
+    ids = torch.zeros((3, 4), dtype=torch.int32)
+    out = TM.lap_cost_cuda(a, b, ids)
+    assert out.shape == (3, 4, 4) and out.dtype == torch.float32
+    assert checked == [('pts1', torch.float32, (3, 4, 37, 3)),
+                       ('pts2', torch.float32, (3, 4, 37, 3)),
+                       ('match_ids', torch.int32, (3, 4))]
+    assert launched == [('mpa_lap_cost', 'lap_cost', a.device, a.data_ptr(),
+                         b.data_ptr(), ids.data_ptr(), out.data_ptr(), 3, 4,
+                         37)]
+    for n in (0, TM.MAX_LAP_COST_N + 1):
+        pts = torch.zeros((1, 2, n, 3))
+        with pytest.raises(ValueError, match='n <= 256'):
+            TM.lap_cost_cuda(pts, pts, torch.ones((1, 2), dtype=torch.int32))
+    TM.lap_cost_cuda(a[:0], b[:0], ids[:0])
+    assert len(launched) == 1
+
+
+class _Groups:
+    """A stand-in dataset whose batches carry hand-built match_ids."""
+
+    def __init__(self, rows, semantic=True):
+        self.rows = np.asarray(rows, np.float32)
+        self.semantic = semantic
+
+    def __len__(self):
+        return len(self.rows)
+
+    def set_epoch(self, epoch):
+        pass
+
+    def collate_batch(self, indices):
+        ids = self.rows[indices]
+        batch = {'part_valids': (ids >= 0).astype(np.float32)}
+        if self.semantic:
+            batch['match_ids'] = ids
+        return batch
+
+
+def test_match_pairs_counts_squared_group_sizes():
+    """`data.match_pairs`: at collate, over each batch's shapes, the sum of
+    each group's squared size (equal nonzero ids; 0 is no group); no such
+    counter on a batch without match_ids."""
+    from multi_part_assembly_tpu_torch.datasets.geometry import (
+        DataLoader, _match_pairs)
+    rows = [[1, 1, 2, 2, 2, 0, 0],   # 4 + 9
+            [0, 0, 0, 0, 0, 0, 0],   # 0
+            [3, 3, 0, 1, 1, 1, 1],   # 4 + 16
+            [1, 2, 3, 4, 5, 6, 7]]   # 7 groups of one
+    assert _match_pairs(np.asarray(rows, np.float32)) == 13 + 20 + 7
+    assert _match_pairs(np.asarray(rows[:2])) == 13
+    tracing.reset()
+    assert len(list(DataLoader(_Groups(rows), batch_size=2, rank=0,
+                               world=1))) == 2
+    assert tracing.counters()['data.match_pairs'] == 40
+    tracing.reset()
+    list(DataLoader(_Groups(rows, semantic=False), batch_size=2, rank=0,
+                    world=1))
+    assert 'data.match_pairs' not in tracing.counters()
+
+
+def test_profile_summary_prints_the_in_group_share(capsys, monkeypatch):
+    """profile_summary_torch.py: the in-group share `data.match_pairs` /
+    (`step.slots` x `max_num_part`) beside the valid-pair share; none
+    without the counter."""
+    monkeypatch.syspath_prepend(os.path.join(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))), 'scripts'))
+    import profile_summary_torch as S
+    counters = {'step.slots': 64, 'data.valid_pairs': 320,
+                'data.match_pairs': 45}
+    s = S.summarize([], counters=counters, max_num_part=20)
+    assert s['match_pair_share'] == pytest.approx(45 / (64 * 20))
+    S.report(s)
+    out = capsys.readouterr().out
+    assert 'in-group share of the part pairs (data.match_pairs / ' \
+        '(step.slots x max_num_part)): 0.0352' in out
+    del counters['data.match_pairs']
+    s = S.summarize([], counters=counters, max_num_part=20)
+    assert s['match_pair_share'] is None
+    S.report(s)
+    assert 'in-group share' not in capsys.readouterr().out
